@@ -1,10 +1,13 @@
 """TurboRANS entry points on the GPU: whole-buffer compress / decompress.
 
-The port of the JAX package's turbo/api.py for the byte wire.  Host side
-does per-group stats and table packing (histogram, normalization, NCount:
-O(group) numpy); the coder chains run in the CUDA kernels behind
-rans_kernels.py.  Groups of equal padded size batch into one launch.
-Frames are byte-identical to the JAX package's for the same flags.
+The port of the JAX package's turbo/api.py for the speed-mode wires:
+byte, pair (turbo/pair.py) and quad (turbo/quad.py), and the auto pick
+between them that the default flags make per group.  Host side does
+per-group stats and table packing (histogram, normalization, NCount, the
+pair / quad alphabets: O(group) numpy); the coder chains run in the CUDA
+kernels behind rans_kernels.py.  Groups of one wire, padded size and
+tableLog batch into one launch.  Frames are byte-identical to the JAX
+package's for the same flags.
 """
 from __future__ import annotations
 
@@ -20,17 +23,28 @@ from ..refimpl.hist import hist_count
 from ..refimpl.ncount import fse_write_ncount
 from ..refimpl.norm import fse_normalize_count, fse_optimal_table_log
 from ..utils.debug import debuglog
-from .format import TURBO_LANES, TURBO_STEP_SYMS, _pad_n
-from .rans import (FLAG_RAW, FLAG_RLE, FLAG_ROWS4, FLAG_STEPTOTS, RANS_MAGIC,
-                   RANS_SPEED_TABLELOG, RANS_TABLELOG, _HDR, _pack_rows4,
-                   parse_rans_group)
-from .rans_kernels import rans_decode_v2, rans_decode_w, rans_encode2
+from .format import TURBO_LANES, _pad_n
+from .pair import apply_escapes, predicted_bits, prep_pair_group
+from .quad import _pad_q, prep_quad_group
+from .rans import (FLAG_QUAD, FLAG_RAW, FLAG_RLE, FLAG_ROWS4, FLAG_STEPTOTS,
+                   RANS_MAGIC, RANS_SPEED_TABLELOG, RANS_TABLELOG, _HDR,
+                   _pack_rows4, parse_rans_group)
+from .rans16 import _pad_n16
+from .rans_kernels import SPC, rans_decode_v2, rans_decode_w, rans_encode2
 from .state import resolve_device, to_tensors
-from .tables import (pack_rans_ctables, pack_rans_dtable, pack_stream_words,
-                     stream_word_rows, v2_pick_nway)
+from .tables import (pack_pair_dtable, pack_quad_dtable, pack_rans_ctables,
+                     pack_rans_dtable, pack_stream_words, stream_word_rows,
+                     v2_pick_nway)
 
 DEFAULT_GROUP = 1 << 20
 MAX_GROUP = 4 << 20   # the JAX encoder's VMEM bound; kept: it shapes frames
+
+# auto dispatch gives the multi-byte wires this much predicted-size slack
+# over the best candidate: the measured trades on p80 1 MiB groups (v5e,
+# tools/probe_r5.py) are -2.8% ratio for 2.0x decode (pair@9: 37.5 GB/s)
+# and -6.4% for 2.6x (quad@10: 47.6 GB/s) vs the byte wire's 18.5 @ 8.30
+# — the reference itself ships Huff0 at -28% ratio for 3x (README.md:32-33)
+PAIR_RATIO_GIVE = 0.07
 
 # Seconds per entry-point stage (c_prep, c_stage, c_h2d, c_kernel, c_d2h,
 # c_frames; d_parse, d_stage, d_h2d, d_kernel, d_d2h, d_copy, d_join),
@@ -91,15 +105,7 @@ def _map(fn, items) -> list:
     return [fn(it) for it in items]
 
 
-def _check_modes(steptots: bool, totals_only: bool, mesh: int, pair: int,
-                 quad: int) -> None:
-    if pair != 0:
-        raise NotImplementedError(
-            "the pair wire arrives with ROADMAP.md queue A item 4; pass pair=0")
-    if quad != 0:
-        raise NotImplementedError(
-            "the quad wire and the auto wire pick arrive with ROADMAP.md "
-            "queue A item 3; pass quad=0")
+def _check_modes(steptots: bool, totals_only: bool, mesh: int) -> None:
     if not steptots or totals_only:
         raise NotImplementedError(
             "ratio mode (steptots=False) and the totals wire arrive with "
@@ -107,6 +113,63 @@ def _check_modes(steptots: bool, totals_only: bool, mesh: int, pair: int,
     if mesh > 1:
         raise NotImplementedError(
             "multi-device compress arrives with ROADMAP.md queue A item 9")
+
+
+def _wire_ests(ch: np.ndarray, prep_byte, tlog_byte: int, pp, qp):
+    """Predicted group sizes (payload + per-wire sections; the 4 KiB init
+    and 16 B header are wire-independent and cancel) for the byte wire and
+    — when eligible — the pair (order-1) and quad (order-3) wires."""
+    n = len(ch)
+    norm_b, max_sv, ncount_b, _mfs = prep_byte
+    counts_b = np.bincount(ch, minlength=max_sv + 1)[: max_sv + 1]
+    # 4 B/step rows4 steptots assumed on every side (cancels any bias)
+    ests = {"byte": (predicted_bits(norm_b, counts_b, tlog_byte) / 8
+                     + len(ncount_b) + 4 * (_pad_n(n) // TURBO_LANES))}
+    if pp is not None:
+        ests["pair"] = (predicted_bits(pp["norm"], pp["counts"], pp["tlog"])
+                        / 8 + len(pp["sections"])
+                        + 4 * (_pad_n16((n + 1) // 2) // TURBO_LANES))
+    if qp is not None:
+        ests["quad"] = (predicted_bits(qp["norm"], qp["counts"], qp["tlog"])
+                        / 8 + len(qp["sections"])
+                        + 4 * (_pad_q((n + 3) // 4) // TURBO_LANES))
+    return ests
+
+
+def _pick_wire(ch: np.ndarray, prep_byte, tlog_byte: int, pp, qp,
+               pair_mode: int, quad_mode: int) -> str:
+    """Auto dispatch across the byte / pair / quad wires: the FASTEST
+    eligible wire whose predicted size is within PAIR_RATIO_GIVE of the
+    best candidate wins (quad decodes 4 bytes/step, pair 2, byte 1 —
+    the same speed-for-ratio call the reference makes shipping Huff0,
+    README.md:32-33).  Force modes (mode == 1) shortcut the estimate."""
+    if quad_mode == 1 and qp is not None:
+        return "quad"
+    if pair_mode == 1 and pp is not None:
+        return "pair"
+    ests = _wire_ests(ch, prep_byte, tlog_byte,
+                      pp if pair_mode != 0 else None,
+                      qp if quad_mode != 0 else None)
+    best = min(ests.values())
+    for wire in ("quad", "pair"):        # fastest first
+        if wire in ests and ests[wire] <= best * (1 + PAIR_RATIO_GIVE):
+            return wire
+    return "byte"
+
+
+def _wire_pad(wire: str, n: int) -> int:
+    """A group of n bytes padded to whole supercycles, counted in the
+    wire's symbols (bytes, pairs or quads)."""
+    if wire == "quad":
+        return _pad_q((n + 3) // 4)
+    if wire == "pair":
+        return _pad_n16((n + 1) // 2)
+    return _pad_n(n)
+
+
+def _wire_t4(wire: str, n_pad: int) -> int:
+    """Supercycles (source / output words per lane) of a padded group."""
+    return n_pad // (TURBO_LANES * SPC[wire])
 
 
 def split_groups(src: np.ndarray, group_size: int) -> list[np.ndarray]:
@@ -121,37 +184,84 @@ def split_groups(src: np.ndarray, group_size: int) -> list[np.ndarray]:
     return chunks
 
 
-def stage_encode_batch(items, n_pad: int):
+_SYM_DTYPE = {"byte": np.uint8, "pair": np.uint16, "quad": np.uint32}
+
+
+def _stage_wire_batch(wire: str, items, n_pad: int):
     """(fc, magic, src_words) numpy inputs of rans_encode2 for a batch of
-    (gi, chunk, prep) items of one padded size: padding with each group's
-    most frequent symbol keeps the final states, hence the frame, equal to
-    the twin's."""
+    (gi, chunk, prep) items of one wire and padded size.  Each group pads
+    with its most frequent symbol (byte) or id (pair, quad): that keeps
+    the final states, hence the frame, equal to the twin's."""
     G = len(items)
-    t4 = n_pad // TURBO_STEP_SYMS
+    dtype = _SYM_DTYPE[wire]
+    rows = n_pad * np.dtype(dtype).itemsize // 512   # 128 words of 4 bytes
     fc = np.zeros((G, 2, 128), np.int32)
     mg = np.zeros((G, 2, 128), np.int32)
-    srcw = np.zeros((G, t4 * 8, 128), np.int32)
+    srcw = np.zeros((G, rows, 128), np.int32)
 
     def stage(j):
-        _gi, ch, (norm, _max_sv, _ncount, mfs) = items[j]
+        _gi, ch, prep = items[j]
+        if wire == "byte":
+            norm, syms, fill = prep[0], ch, prep[3]
+        else:
+            norm, syms, fill = prep["norm"], prep["ids"], prep["mfi"]
         fc[j], mg[j] = pack_rans_ctables(norm)  # layout is tlog-agnostic
-        pad = np.full(n_pad, mfs, np.uint8)
-        pad[: len(ch)] = ch
-        srcw[j] = pad.view("<u4").view(np.int32).reshape(t4 * 8, 128)
+        pad = np.full(n_pad, fill, dtype)
+        pad[: len(syms)] = syms
+        srcw[j] = pad.view("<u4").view(np.int32).reshape(rows, 128)
 
     _map(stage, range(G))
     return fc, mg, srcw
 
 
-def plan_encode(data: bytes, group_size: int, table_log: int):
-    """Cut data into groups and prep each one: returns (group count,
-    {gi: frame} of the RLE and raw groups, {n_pad: [(gi, chunk, prep)]}:
-    the encode kernel's batches, one per padded size)."""
+def stage_encode_batch(items, n_pad: int):
+    """Byte-wire encode inputs: items are (gi, chunk, _prep_group(chunk)),
+    n_pad the padded byte count (4 bytes per source word)."""
+    return _stage_wire_batch("byte", items, n_pad)
+
+
+def stage_pair_batch(items, n_pad16: int):
+    """Pair-wire encode inputs: items are (gi, chunk, prep_pair_group(chunk)),
+    n_pad16 the padded pair count (2 u16 ids per source word)."""
+    return _stage_wire_batch("pair", items, n_pad16)
+
+
+def stage_quad_batch(items, id_pad: int):
+    """Quad-wire encode inputs: items are (gi, chunk, prep_quad_group(chunk)),
+    id_pad the padded quad count (1 id per source word)."""
+    return _stage_wire_batch("quad", items, id_pad)
+
+
+STAGE_BATCH = {"byte": stage_encode_batch, "pair": stage_pair_batch,
+               "quad": stage_quad_batch}
+
+
+def plan_encode(data: bytes, group_size: int, table_log: int, pair: int = -1,
+                quad: int = -1, pair_table_log: int = 0,
+                quad_table_log: int = 0):
+    """Cut data into groups, prep each one and pick its wire: returns (group
+    count, {gi: frame} of the RLE and raw groups, {(wire, n_pad, tlog):
+    [(gi, chunk, prep)]}: the encode kernel's batches).  prep is the
+    _prep_group tuple on the byte wire, the prep_pair_group /
+    prep_quad_group dict on the others."""
     chunks = split_groups(np.frombuffer(data, dtype=np.uint8), group_size)
-    preps = _map(lambda ch: _prep_group(ch, table_log), chunks)
+
+    def full_prep(ch):
+        """(wire, prep), or (None, None) for an RLE / raw group."""
+        p = _prep_group(ch, table_log)
+        if p is None:
+            return None, None
+        pp = prep_pair_group(ch, pair_table_log) if pair != 0 else None
+        qp = prep_quad_group(ch, quad_table_log) if quad != 0 else None
+        if pp is None and qp is None:        # no other wire to weigh
+            return "byte", p
+        wire = _pick_wire(ch, p, table_log, pp, qp, pair, quad)
+        return wire, {"byte": p, "pair": pp, "quad": qp}[wire]
+
+    preps = _map(full_prep, chunks)
     frames: dict[int, bytes] = {}
-    batches: dict[int, list] = {}
-    for gi, (ch, prep) in enumerate(zip(chunks, preps)):
+    batches: dict[tuple[str, int, int], list] = {}
+    for gi, (ch, (wire, prep)) in enumerate(zip(chunks, preps)):
         if prep is None:
             if (ch == ch[0]).all():  # RLE
                 frames[gi] = _HDR.pack(RANS_MAGIC, len(ch), 0, 0, FLAG_RLE, 0) \
@@ -160,30 +270,42 @@ def plan_encode(data: bytes, group_size: int, table_log: int):
                 frames[gi] = _HDR.pack(RANS_MAGIC, len(ch), 0, 0, FLAG_RAW, 0) \
                     + ch.tobytes()
             continue
-        batches.setdefault(_pad_n(len(ch)), []).append((gi, ch, prep))
+        tlog = table_log if wire == "byte" else prep["tlog"]
+        batches.setdefault((wire, _wire_pad(wire, len(ch)), tlog), []).append(
+            (gi, ch, prep))
     return len(chunks), frames, batches
 
 
-def _encode_frame(ch, ncount: bytes, csize: int, words: np.ndarray,
-                  fin: np.ndarray, stots: np.ndarray, table_log: int) -> bytes:
-    """One group's frame from the encode kernel's outputs (raw when the
-    frame would not be smaller than the group)."""
+def _encode_frame(ch, tlog: int, flags: int, nc_len: int, head: bytes,
+                  csize: int, words: np.ndarray, fin: np.ndarray,
+                  stots: np.ndarray) -> bytes:
+    """One group's frame from the encode kernel's outputs: head is what
+    lies between the header and the init states (the padded NCount; pair
+    and quad add their LUT and escapes).  Raw when the frame would not be
+    smaller than the group."""
     # wire payload bytes ARE the packed words little-endian
     payload = words.tobytes()[: 2 * csize]
-    ncount_pad = ncount + b"\0" * (-len(ncount) % 4)
     packed = _pack_rows4(stots)
     if packed is not None:
-        sect, fl = packed, FLAG_STEPTOTS | FLAG_ROWS4
+        sect, fl = packed, flags | FLAG_STEPTOTS | FLAG_ROWS4
     else:
-        sect, fl = stots.reshape(-1).tobytes(), FLAG_STEPTOTS
-    blob = (_HDR.pack(RANS_MAGIC, len(ch), csize, table_log, fl, len(ncount))
-            + ncount_pad
+        sect, fl = stots.reshape(-1).tobytes(), flags | FLAG_STEPTOTS
+    blob = (_HDR.pack(RANS_MAGIC, len(ch), csize, tlog, fl, nc_len)
+            + head
             + fin.reshape(-1).view(np.uint32).astype("<u4").tobytes()
             + sect
             + payload)
     if len(blob) >= len(ch) + _HDR.size:
         blob = _HDR.pack(RANS_MAGIC, len(ch), 0, 0, FLAG_RAW, 0) + ch.tobytes()
     return blob
+
+
+def _frame_head(wire: str, prep) -> tuple[int, int, bytes]:
+    """(flags, ncount length, head bytes) of a group's frame."""
+    if wire == "byte":
+        ncount = prep[2]
+        return 0, len(ncount), ncount + b"\0" * (-len(ncount) % 4)
+    return prep["flags"], prep["nc_len"], prep["sections"]
 
 
 def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
@@ -195,16 +317,20 @@ def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
                           quad: int = -1,
                           quad_table_log: int = 0,
                           device=None) -> bytes:
-    """Compress with the TurboRANS encode kernel (byte wire, speed mode).
+    """Compress with the TurboRANS encode kernel (speed mode).
 
     Frames equal the JAX package's turbo_compress_device with the same
-    flags.  This slice ports the byte wire only: it raises
-    NotImplementedError unless pair == 0, quad == 0, steptots is True,
-    totals_only is False and mesh <= 1 (pair_table_log and quad_table_log
-    are then unused).  table_log=0 = the speed-mode default (10).
+    flags.  pair / quad select the multi-byte wires (turbo/pair.py order-1
+    — 2 bytes per decode step; turbo/quad.py order-3 — 4 bytes per step):
+    -1 (default) auto-picks per group the FASTEST wire whose predicted size
+    is within PAIR_RATIO_GIVE of the best candidate; 0 disables; 1 forces
+    when eligible (quad beats pair when both are forced).  pair_table_log /
+    quad_table_log = 0 pick the wire defaults; table_log=0 = the byte
+    wire's speed-mode default (10).  Ratio mode (steptots=False), the
+    totals wire and mesh > 1 raise NotImplementedError (not ported yet).
     device: torch device for the kernels; None = cuda (raises without
     one), "cpu" runs the plain PyTorch versions."""
-    _check_modes(steptots, totals_only, mesh, pair, quad)
+    _check_modes(steptots, totals_only, mesh)
     dev = resolve_device(device)
     if table_log == 0:
         table_log = RANS_SPEED_TABLELOG
@@ -222,19 +348,23 @@ def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
     if len(data) == 0:
         return _HDR.pack(RANS_MAGIC, 0, 0, 0, FLAG_RAW, 0)
     with _stage("c_prep", dev):
-        n_groups, results, batches = plan_encode(data, group_size, table_log)
+        n_groups, results, batches = plan_encode(
+            data, group_size, table_log, pair, quad, pair_table_log,
+            quad_table_log)
 
-    for n_pad, items in batches.items():
+    for (wire, n_pad, tlog), items in batches.items():
         G = len(items)
-        debuglog(3, "turbo encode: batch of %d groups, n_pad=%d", G, n_pad)
+        debuglog(3, "turbo encode: %s batch of %d groups, n_pad=%d, tlog=%d",
+                 wire, G, n_pad, tlog)
         with _stage("c_stage", dev):
-            fc, mg, srcw = stage_encode_batch(items, n_pad)
+            fc, mg, srcw = STAGE_BATCH[wire](items, n_pad)
         with _stage("c_h2d", dev):
             ins = to_tensors(dev, fc_tables=fc, magic_tables=mg, src_words=srcw)
         with _stage("c_kernel", dev):
             stream, fin, csize, stots = rans_encode2(
                 ins["fc_tables"], ins["magic_tables"], ins["src_words"],
-                n_pad // TURBO_STEP_SYMS, _hrows_cap(n_pad), table_log)
+                _wire_t4(wire, n_pad), _hrows_cap(n_pad), tlog,
+                u16=wire == "pair", quad=wire == "quad")
         with _stage("c_d2h", dev):
             csize = csize.cpu().numpy()
             # the payload is the first csize halfwords: copy only the words used
@@ -243,43 +373,57 @@ def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
             fin = fin.cpu().numpy()
             stots = stots.cpu().numpy().astype(np.uint8)
         with _stage("c_frames", dev):
-            for j, (gi, ch, (_norm, _max_sv, ncount, _mfs)) in enumerate(items):
-                results[gi] = _encode_frame(ch, ncount, int(csize[j]), stream[j],
-                                            fin[j], stots[j], table_log)
+            for j, (gi, ch, prep) in enumerate(items):
+                results[gi] = _encode_frame(ch, tlog, *_frame_head(wire, prep),
+                                            int(csize[j]), stream[j], fin[j],
+                                            stots[j])
     return b"".join(results[gi] for gi in range(n_groups))
 
 
 def _window_dispatch(windows: int, t_count: int, hrows: int, tlog: int,
-                     G: int) -> tuple[int, int]:
-    """Entry choice for a byte-wire decode batch, as the JAX package's
+                     G: int, pair: bool = False,
+                     quad: bool = False) -> tuple[int, int]:
+    """Entry choice for a speed-wire decode batch, as the JAX package's
     (api.py:494-547) makes it, so a batch reaches the same entry there and
     here: returns (nway, S) for rans_decode_w, or (0, 0) for rans_decode_v2.
 
     windows > 1 forces rans_decode_w at that interleave (when the shape is
     eligible); windows == 1 forces rans_decode_v2; windows == 0 picks by
-    the JAX package's TPU cost model: rans_decode_w iff
+    the JAX package's TPU cost model: pair and quad batches go windowed
+    whenever t_count is a multiple of 128//spc; byte batches iff
     7*G >= nv*pad8(G), nv the resident decoder's interleave."""
-    if t_count % 32:
+    spc = 1 if quad else 2 if pair else 4
+    smin = 128 // spc
+    if t_count % smin:
         return 0, 0          # group too small / misaligned for windows
-    S = 64 if t_count % 64 == 0 else 32
+    S = smin if quad else min(
+        2 * smin if t_count % (2 * smin) == 0 else smin, 64)
     if windows == 1:
         return 0, 0
     if windows > 1:
         return windows, S
+    if pair or quad:
+        return 8, S
     nv = v2_pick_nway(t_count, hrows, tlog)
     if 7 * G >= nv * ((G + 7) // 8 * 8):
         return 8, S
     return 0, 0
 
 
-def stage_decode_batch(groups, idxs, n_pad: int, tlog: int):
-    """numpy inputs of the decode entries for a batch of parsed byte-wire
-    groups of one padded size and tableLog: (csize_hw, tables,
-    init_states, streams, steptots, t4, hrows)."""
+_DTABLE = {"byte": lambda g, tlog: pack_rans_dtable(g[4], tlog),
+           "pair": lambda g, tlog: pack_pair_dtable(g[4], g[9], tlog),
+           "quad": lambda g, tlog: pack_quad_dtable(g[4], g[9], tlog)}
+
+
+def stage_decode_batch(groups, idxs, n_pad: int, tlog: int,
+                       wire: str = "byte"):
+    """numpy inputs of the decode entries for a batch of parsed groups of
+    one wire, padded size (in the wire's symbols) and tableLog: (csize_hw,
+    tables, init_states, streams, steptots, t4, hrows)."""
     G = len(idxs)
-    t4 = n_pad // TURBO_STEP_SYMS
+    t4 = _wire_t4(wire, n_pad)
     hrows = _round8(max((groups[i][1] + 127) // 128 for i in idxs) + 16)
-    tch = max((1 << tlog) // 128, 1)
+    tch = max((1 << tlog) // 128, 1) + (0 if wire == "byte" else 2)
     T = n_pad // TURBO_LANES
     srows = stream_word_rows(hrows)
     tbl = np.zeros((G, tch, 128), np.int32)
@@ -292,12 +436,12 @@ def stage_decode_batch(groups, idxs, n_pad: int, tlog: int):
         # the wire payload is already the packed word layout — staging is
         # a straight byte copy
         j, i = j_i
-        _n, csize_hw, _tl, _flags, norm, _msv, ini, payload, stots = groups[i]
-        tbl[j] = pack_rans_dtable(norm, tlog)
-        init[j] = ini.view(np.int32).reshape(8, 128)
-        hws[j] = pack_stream_words(payload, srows)
-        cs[j] = csize_hw
-        tots[j] = stots
+        g = groups[i]
+        tbl[j] = _DTABLE[wire](g, tlog)
+        init[j] = g[6].view(np.int32).reshape(8, 128)
+        hws[j] = pack_stream_words(g[7], srows)
+        cs[j] = g[1]
+        tots[j] = g[8]
 
     _map(fill, list(enumerate(idxs)))
     return cs, tbl, init, hws, tots, t4, hrows
@@ -314,11 +458,11 @@ def parse_groups(blob: bytes) -> list:
 
 
 def plan_decode(groups):
-    """({i: bytes} of the raw and RLE groups, {(n_pad, tlog): [i]}: the
-    decode entries' batches).  Raises NotImplementedError on groups of a
-    wire this slice does not port."""
+    """({i: bytes} of the raw and RLE groups, {(wire, n_pad, tlog): [i]}:
+    the decode entries' batches).  Raises NotImplementedError on groups of
+    a wire this port does not have yet (v1 ratio mode, FLAG_TOTALS)."""
     pieces: dict[int, bytes] = {}
-    batches: dict[tuple[int, int], list[int]] = {}
+    batches: dict[tuple[str, int, int], list[int]] = {}
     for i, g in enumerate(groups):
         n, tlog, flags, payload, steptots = g[0], g[2], g[3], g[7], g[8]
         if flags & FLAG_RAW:
@@ -330,19 +474,32 @@ def plan_decode(groups):
                 "v1 (ratio mode) and FLAG_TOTALS groups arrive with "
                 "ROADMAP.md queue A item 5")
         else:
-            batches.setdefault((_pad_n(n), tlog), []).append(i)
+            wire = ("byte" if len(g) == 9
+                    else "quad" if flags & FLAG_QUAD else "pair")
+            batches.setdefault((wire, _wire_pad(wire, n), tlog), []).append(i)
     return pieces, batches
+
+
+def _group_bytes(wire: str, g, words: np.ndarray) -> bytes:
+    """A group's decoded bytes from its output words; pair and quad groups
+    get their escaped values patched in."""
+    n = g[0]
+    if wire == "byte":
+        return words.astype("<i4").tobytes()[:n]
+    dtype, k = (np.uint32, (n + 3) // 4) if wire == "quad" else (np.uint16, (n + 1) // 2)
+    vals = words.astype("<i4").reshape(-1).view(dtype)[:k].copy()
+    return apply_escapes(vals, g[10]).tobytes()[:n]
 
 
 def turbo_decompress_device(blob: bytes, mesh: int = 0, windows: int = 0,
                             device=None) -> bytes:
     """Decompress a TurboRANS stream with the decode kernel.
 
-    windows picks the decode entry as the JAX package does (see
-    _window_dispatch); both entries run the same CUDA kernel.  Raises
-    ValueError on a corrupt group and NotImplementedError on groups of a
-    wire this slice does not port (pair, quad, totals, v1 ratio mode).
-    device: as turbo_compress_device."""
+    Decodes byte, pair and quad speed-mode groups.  windows picks the
+    decode entry as the JAX package does (see _window_dispatch); both
+    entries run the same CUDA kernel.  Raises ValueError on a corrupt group
+    and NotImplementedError on groups of a wire the port does not have yet
+    (totals, v1 ratio mode).  device: as turbo_compress_device."""
     if mesh > 1:
         raise NotImplementedError(
             "multi-device decompress arrives with ROADMAP.md queue A item 9")
@@ -351,26 +508,29 @@ def turbo_decompress_device(blob: bytes, mesh: int = 0, windows: int = 0,
         groups = parse_groups(blob)
         pieces, batches = plan_decode(groups)
 
-    for (n_pad, tlog), idxs in batches.items():
+    for (wire, n_pad, tlog), idxs in batches.items():
         G = len(idxs)
-        debuglog(3, "turbo decode: batch of %d groups, n_pad=%d, tlog=%d",
-                 G, n_pad, tlog)
+        debuglog(3, "turbo decode: %s batch of %d groups, n_pad=%d, tlog=%d",
+                 wire, G, n_pad, tlog)
         with _stage("d_stage", dev):
             cs, tbl, init, hws, tots, t4, hrows = stage_decode_batch(
-                groups, idxs, n_pad, tlog)
+                groups, idxs, n_pad, tlog, wire)
         with _stage("d_h2d", dev):
             ins = to_tensors(dev, csize_hw=cs, tables=tbl, init_states=init,
                              streams=hws, steptots=tots)
         args = (ins["csize_hw"], ins["tables"], ins["init_states"],
                 ins["streams"], ins["steptots"], t4, hrows)
+        modes = dict(u16=wire == "pair", pair=wire == "pair",
+                     quad=wire == "quad")
         with _stage("d_kernel", dev):
-            w_nway, w_s = _window_dispatch(windows, t4, hrows, tlog, G)
+            w_nway, w_s = _window_dispatch(windows, t4, hrows, tlog, G,
+                                           modes["pair"], modes["quad"])
             if w_nway:
                 debuglog(2, "turbo decode: rans_decode_w entry (windows=%d, "
-                            "t4=%d, G=%d)", windows, t4, G)
-                outw, err = rans_decode_w(*args, w_nway, tlog, w_s)
+                            "t4=%d, G=%d, wire=%s)", windows, t4, G, wire)
+                outw, err = rans_decode_w(*args, w_nway, tlog, w_s, **modes)
             else:
-                outw, err = rans_decode_v2(*args, tlog)
+                outw, err = rans_decode_v2(*args, tlog, **modes)
         with _stage("d_d2h", dev):
             err = err.cpu().numpy()
             if err.any():
@@ -379,6 +539,6 @@ def turbo_decompress_device(blob: bytes, mesh: int = 0, windows: int = 0,
             outw = outw.cpu().numpy()
         with _stage("d_copy", dev):
             for j, i in enumerate(idxs):
-                pieces[i] = outw[j].astype("<i4").tobytes()[: groups[i][0]]
+                pieces[i] = _group_bytes(wire, groups[i], outw[j])
     with _stage("d_join", dev):
         return b"".join(pieces[i] for i in range(len(groups)))

@@ -33,10 +33,12 @@ Halfword layout: at decode step t, flagged lanes (ascending k) read
 positions cursor - rank_k (rank = inclusive prefix of flags); cursor -=
 total.  The encoder mirrors this exactly (see twin below).
 
-Copy of the JAX package's turbo/rans.py:47-330 (byte wire only: pair and
-quad groups raise NotImplementedError); the tests hold it equal to the
-original.  The numpy twin rans_compress / rans_decompress is the port's
-own oracle, so checks on the GPU need no JAX.
+Copy of the JAX package's turbo/rans.py:47-330; the tests hold it equal
+to the original.  parse_rans_group and rans_decompress hand FLAG_PAIR and
+FLAG_QUAD groups to pair.py and quad.py, whose parsers return an 11-tuple
+(the 9 slots below plus the id LUT and the escapes).  The numpy twin
+rans_compress / rans_decompress is the port's own oracle, so checks on the
+GPU need no JAX.
 """
 from __future__ import annotations
 
@@ -65,8 +67,8 @@ FLAG_ROWS4 = 16     # modifier on FLAG_STEPTOTS: counts nibble-packed
                     # the section halves with NO decode-speed cost (the
                     # kernels consume unpacked [T,8] arrays either way).
                     # Picked automatically whenever it is smaller.
-FLAG_PAIR = 32      # order-1 pair wire (not in the port yet)
-FLAG_QUAD = 128     # order-3 quad wire (not in the port yet)
+FLAG_PAIR = 32      # order-1 pair wire (pair.py)
+FLAG_QUAD = 128     # order-3 quad wire (quad.py)
 
 _HDR = struct.Struct("<IIIBBH")
 
@@ -242,14 +244,14 @@ def parse_rans_group(blob: bytes):
     magic, n, csize_hw, table_log, flags, nc_len = _HDR.unpack_from(blob, 0)
     if magic != RANS_MAGIC:
         raise ValueError("bad turbo-rans magic")
-    if flags & FLAG_PAIR:
-        raise NotImplementedError(
-            "pair-wire groups (FLAG_PAIR) arrive with ROADMAP.md queue A "
-            "item 4 (pair wire)")
-    if flags & FLAG_QUAD:
-        raise NotImplementedError(
-            "quad-wire groups (FLAG_QUAD) arrive with ROADMAP.md queue A "
-            "item 3 (quad wire)")
+    if flags & FLAG_PAIR:  # order-1 wire, extra LUT/escape sections
+        from .pair import parse_pair_group
+
+        return parse_pair_group(blob)   # 11-tuple: + pairs, escapes
+    if flags & FLAG_QUAD:  # order-3 wire (4 bytes/step)
+        from .quad import parse_quad_group
+
+        return parse_quad_group(blob)   # 11-tuple: + quads, escapes
     pos = _HDR.size
     if flags & FLAG_RAW:
         return (n, csize_hw, table_log, flags, None, 0, None,
@@ -287,6 +289,14 @@ def parse_rans_group(blob: bytes):
 
 def rans_decompress(blob: bytes) -> bytes:
     g, _ = parse_rans_group(blob)
+    if len(g) == 11:  # FLAG_PAIR / FLAG_QUAD group
+        if g[3] & FLAG_QUAD:
+            from .quad import quad_decompress
+
+            return quad_decompress(blob)
+        from .pair import pair_decompress
+
+        return pair_decompress(blob)
     (n, csize_hw, table_log, flags, norm, max_sv, init, payload,
      steptots) = g
     if flags & FLAG_RAW:

@@ -13,13 +13,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# argument name -> rank, as the JAX wrappers (and the port's) take them
+# argument name -> rank, as the JAX wrappers (and the port's) take them.
+# tch = max(2^tlog / 128, 1); spc = steps per word: 4 byte, 2 pair, 1 quad;
+# t4 = supercycles, T = spc * t4 steps.
 LAYOUTS = {
-    "fc_tables": 3,      # [G, 2, 128]  (cumul << 12) | freq
+    "fc_tables": 3,      # [G, 2, 128]  (cumul << 12) | freq, 256 symbols/ids
     "magic_tables": 3,   # [G, 2, 128]  floor(2^32 / freq), clipped
-    "src_words": 3,      # [G, t4*8, 128]  4 source bytes per word
+    "src_words": 3,      # [G, t4*8, 128]  4 bytes (byte), 2 u16 pair ids
+                         #   (pair) or 1 quad id (quad) per word
     "csize_hw": 1,       # [G]  stream halfwords
-    "tables": 3,         # [G, tch, 128]  (cumul << 20) | (freq << 8) | sym
+    "tables": 3,         # byte: [G, tch, 128]  (cumul << 20) | (freq << 8) | sym
+                         # pair, quad: [G, tch+2, 128]  (id << 2*tlog) |
+                         #   (freq << tlog) | (slot - cumul), then the
+                         #   256-entry id LUT (u16 pair / u32 quad values)
     "init_states": 3,    # [G, 8, 128]  decoder initial states
     "streams": 3,        # [G, srows, 128]  packed payload words
     "steptots": 3,       # [G, T, 8]  per-step per-row renorm counts

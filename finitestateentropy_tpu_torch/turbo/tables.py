@@ -1,9 +1,10 @@
 """Pure-numpy helpers that live in jax-importing modules of the JAX package.
 
 Copies of finitestateentropy_tpu/turbo/rans_kernels.py:242-256 (stream
-words), :783-793 (_enc_chunking), :886-905 (byte-wire table packers) and
-:1182-1214 (the resident decoder's interleave pick, which the decode
-routing in api.py reads).  The tests hold each equal to its original.
+words), :783-793 (_enc_chunking), :886-905 (byte-wire table packers),
+:932-976 (pair and quad decode tables) and :1182-1214 (the resident
+decoder's interleave pick, which the decode routing in api.py reads).  The
+tests hold each equal to its original.
 """
 from __future__ import annotations
 
@@ -64,6 +65,53 @@ def pack_rans_ctables(norm) -> tuple[np.ndarray, np.ndarray]:
     fc = ((c << 12) | f).astype(np.int32)
     magic = np.minimum(2**32 // f, 0xFFFFFFFF).astype(np.uint32).view(np.int32)
     return fc.reshape(2, 128), magic.reshape(2, 128)
+
+
+def pack_pair_dtable(norm, pairs: np.ndarray,
+                     tlog: int = RANS_TABLELOG) -> np.ndarray:
+    """[(2^tlog/128)+2, 128] i32 pair-wire decode table (turbo/pair.py):
+    rows [0, tch) pack (pair_id << 2*tlog) | (freq << tlog) | (slot-cumul)
+    — one word since pair_id < 256 and tlog <= 12 — and rows [tch, tch+2)
+    hold the 256-entry id -> raw u16 pair-value LUT."""
+    assert tlog <= 12, tlog
+    freq, cumul = rans_freqs(np.asarray(norm))
+    m = 1 << tlog
+    tch = max(m // 128, 1)
+    bounds = np.concatenate([cumul, [m]])
+    slots = np.arange(m)
+    sid = np.searchsorted(bounds, slots, side="right") - 1
+    e = ((sid << (2 * tlog)) | (freq[sid] << tlog)
+         | (slots - cumul[sid])).astype(np.int64)
+    main = np.zeros(max(m, 128), np.int64)
+    main[:m] = e
+    lut = np.zeros(256, np.int32)
+    lut[: len(pairs)] = np.asarray(pairs, np.uint16)
+    return np.concatenate(
+        [main.astype(np.int32).reshape(-1, 128), lut.reshape(2, 128)], axis=0)
+
+
+def pack_quad_dtable(norm, quads: np.ndarray,
+                     tlog: int = RANS_TABLELOG) -> np.ndarray:
+    """[(2^tlog/128)+2, 128] i32 quad-wire decode table (turbo/quad.py):
+    identical layout to pack_pair_dtable but the 256-entry LUT in rows
+    [tch, tch+2) holds raw u32 4-byte groups (stored as i32 bit patterns
+    — the decode step's output word IS the LUT value)."""
+    assert tlog <= 12, tlog
+    freq, cumul = rans_freqs(np.asarray(norm))
+    m = 1 << tlog
+    tch = max(m // 128, 1)
+    bounds = np.concatenate([cumul, [m]])
+    slots = np.arange(m)
+    sid = np.searchsorted(bounds, slots, side="right") - 1
+    e = ((sid << (2 * tlog)) | (freq[sid] << tlog)
+         | (slots - cumul[sid])).astype(np.int64)
+    main = np.zeros(max(m, 128), np.int64)
+    main[:m] = e
+    lut = np.zeros(256, "<u4")
+    lut[: len(quads)] = np.asarray(quads, np.uint32)
+    return np.concatenate(
+        [main.astype(np.int32).reshape(-1, 128),
+         lut.view(np.int32).reshape(2, 128)], axis=0)
 
 
 def _pick_nway(per_group_bytes: int, budget: int = (18 * 2**20 + 700 * 2**10)) -> int:

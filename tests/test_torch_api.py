@@ -1,4 +1,5 @@
-"""The port's TurboRANS entry points against the JAX package (byte wire).
+"""The port's TurboRANS entry points against the JAX package (byte wire;
+tests/test_torch_pair_quad.py covers the pair and quad wires).
 
 Frames from finitestateentropy_tpu_torch.turbo.api on the CPU (the plain
 PyTorch versions of the kernels) must equal the JAX package's, byte for
@@ -16,8 +17,7 @@ from finitestateentropy_tpu_torch.turbo.api import (DEFAULT_GROUP, MAX_GROUP,
                                                     split_groups,
                                                     turbo_compress_device,
                                                     turbo_decompress_device)
-from finitestateentropy_tpu_torch.turbo.rans import (_HDR, FLAG_RAW, FLAG_RLE,
-                                                     RANS_MAGIC,
+from finitestateentropy_tpu_torch.turbo.rans import (FLAG_RAW, FLAG_RLE,
                                                      parse_rans_group)
 from finitestateentropy_tpu_torch.utils import generate_proba
 
@@ -79,9 +79,9 @@ def test_decode_routing_matches_jax_dispatch(windows, monkeypatch):
     for name in ("rans_decode_v2", "rans_decode_w"):
         entry = getattr(api, name)
 
-        def spy(*a, _name=name, _entry=entry):
+        def spy(*a, _name=name, _entry=entry, **kw):
             calls.append((_name, a[5], a[6], a[1].shape[0]))
-            return _entry(*a)
+            return _entry(*a, **kw)
         monkeypatch.setattr(api, name, spy)
     data = generate_proba(14, 8 * 131072)
     assert decompress(_twin_groups(data, 131072), windows=windows) == data
@@ -146,23 +146,25 @@ def test_ragged_multi_mib_tail_split():
     assert decompress(port) == data
 
 
-@pytest.mark.parametrize("kw", [dict(pair=-1, quad=0), dict(pair=1, quad=0),
-                                dict(pair=0, quad=-1), dict(pair=0, quad=0, mesh=2),
+@pytest.mark.parametrize("kw", [dict(pair=0, quad=0, mesh=2),
                                 dict(pair=0, quad=0, steptots=False),
-                                dict(pair=0, quad=0, totals_only=True)])
+                                dict(pair=0, quad=0, totals_only=True),
+                                dict(mesh=2), dict(steptots=False),
+                                dict(totals_only=True),
+                                dict(pair=1, steptots=False)])
 def test_unported_modes_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         turbo_compress_device(b"abc" * 1000, device="cpu", **kw)
 
 
 def test_unported_frames_raise():
-    for flags in (32, 128):                      # FLAG_PAIR, FLAG_QUAD
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            decompress(_HDR.pack(RANS_MAGIC, 10, 0, 10, flags, 0) + b"\0" * 64)
+    from finitestateentropy_tpu.turbo.pair import pair_compress as j_pair_twin
+
     data = generate_proba(80, 20000)
-    for kw in (dict(steptots=False), dict(totals_only=True)):
+    for blob in (j_twin(data, steptots=False), j_twin(data, totals_only=True),
+                 j_pair_twin(data, steptots=False)):     # v1 pair frame
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            decompress(j_twin(data, **kw))
+            decompress(blob)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         decompress(compress(data), mesh=2)
 
@@ -170,7 +172,8 @@ def test_unported_frames_raise():
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        turbo_compress_device(b"abc" * 100, pair=0, quad=0)
+    for kw in (dict(pair=0, quad=0), {}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            turbo_compress_device(b"abc" * 100, **kw)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         turbo_decompress_device(compress(b"abc" * 100))

@@ -12,7 +12,10 @@ import finitestateentropy_tpu.refimpl.ncount as j_ncount
 import finitestateentropy_tpu.refimpl.norm as j_norm
 import finitestateentropy_tpu.turbo.api as j_api
 import finitestateentropy_tpu.turbo.format as j_format
+import finitestateentropy_tpu.turbo.pair as j_pair
+import finitestateentropy_tpu.turbo.quad as j_quad
 import finitestateentropy_tpu.turbo.rans as j_rans
+import finitestateentropy_tpu.turbo.rans16 as j_rans16
 import finitestateentropy_tpu.turbo.rans_kernels as j_kern
 import finitestateentropy_tpu.utils.probagen as j_probagen
 import finitestateentropy_tpu_torch.refimpl.hist as p_hist
@@ -20,7 +23,10 @@ import finitestateentropy_tpu_torch.refimpl.ncount as p_ncount
 import finitestateentropy_tpu_torch.refimpl.norm as p_norm
 import finitestateentropy_tpu_torch.turbo.api as p_api
 import finitestateentropy_tpu_torch.turbo.format as p_format
+import finitestateentropy_tpu_torch.turbo.pair as p_pair
+import finitestateentropy_tpu_torch.turbo.quad as p_quad
 import finitestateentropy_tpu_torch.turbo.rans as p_rans
+import finitestateentropy_tpu_torch.turbo.rans16 as p_rans16
 import finitestateentropy_tpu_torch.turbo.tables as p_tables
 import finitestateentropy_tpu_torch.utils.probagen as p_probagen
 
@@ -125,9 +131,21 @@ def test_routing_helpers_equal():
                     for windows in (0, 1, 4):
                         assert (j_api._window_dispatch(windows, t4, hrows, tlog, G, False)
                                 == p_api._window_dispatch(windows, t4, hrows, tlog, G))
+                        assert (j_api._window_dispatch(windows, t4, hrows, tlog, G,
+                                                       False, u16=True, pair=True)
+                                == p_api._window_dispatch(windows, t4, hrows, tlog, G,
+                                                          pair=True))
+                        assert (j_api._window_dispatch(windows, t4, hrows, tlog, G,
+                                                       False, quad=True)
+                                == p_api._window_dispatch(windows, t4, hrows, tlog, G,
+                                                          quad=True))
     for n in (1, 4096, 4097, 40960, 1 << 20, (1 << 20) + 1):
         assert j_api._hrows_cap(n) == p_api._hrows_cap(n)
         assert j_format._pad_n(n) == p_format._pad_n(n)
+        assert j_rans16._pad_n16(n) == p_rans16._pad_n16(n)
+        assert j_quad._pad_q(n) == p_quad._pad_q(n)
+    assert p_rans16.RANS16_STEP_SYMS == j_rans16.RANS16_STEP_SYMS
+    assert p_api.PAIR_RATIO_GIVE == j_api.PAIR_RATIO_GIVE
 
 
 @pytest.mark.parametrize("name", list(CORPORA))
@@ -158,3 +176,88 @@ def test_numpy_twin_copy_equal(name):
     assert ju == pu
     for a, b in zip(jg, pg):
         assert (np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b)
+
+
+def _equal(a, b) -> bool:
+    """Deep equality of the host modules' results (dicts, tuples, arrays)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and np.array_equal(a, b))
+    return a == b
+
+
+@pytest.mark.parametrize("name", list(CORPORA))
+def test_rans16_helpers_equal(name):
+    d = _corpus(name, 8192).view("<u2")
+    m = p_rans16._lane_view16(d)
+    assert np.array_equal(m, j_rans16._lane_view16(d))
+    assert np.array_equal(p_rans16._unlane_view16(m), j_rans16._unlane_view16(m))
+    assert np.array_equal(p_rans16._unlane_view16(m), d)
+
+
+@pytest.mark.parametrize("name", list(CORPORA))
+def test_pair_copy_equal(name):
+    for part in (_corpus(name), _corpus(name)[:9001]):
+        assert _equal(p_pair.pair_plan(part), j_pair.pair_plan(part))
+        for tlog in (0, 11, 12):
+            pp = p_pair.prep_pair_group(part, tlog)
+            assert _equal(pp, j_pair.prep_pair_group(part, tlog))
+            blob = j_pair.pair_compress(part.tobytes(), tlog)
+            assert p_pair.pair_compress(part.tobytes(), tlog) == blob
+            if blob is None:
+                continue
+            assert _equal(p_pair.parse_pair_group(blob), j_pair.parse_pair_group(blob))
+            assert _equal(p_rans.parse_rans_group(blob), j_rans.parse_rans_group(blob))
+            assert p_pair.pair_decompress(blob) == part.tobytes()
+            assert p_rans.rans_decompress(blob) == part.tobytes()
+            assert (p_pair.predicted_bits(pp["norm"], pp["counts"], pp["tlog"])
+                    == j_pair.predicted_bits(pp["norm"], pp["counts"], pp["tlog"]))
+            assert np.array_equal(
+                p_tables.pack_pair_dtable(pp["norm"], pp["pairs"], pp["tlog"]),
+                j_kern.pack_pair_dtable(pp["norm"], pp["pairs"], pp["tlog"]))
+
+
+@pytest.mark.parametrize("name", list(CORPORA) + ["p80_1MiB"])
+def test_quad_copy_equal(name):
+    """p80 at 1 MiB is the main path's group: quad @ 10 with escapes."""
+    d = (np.frombuffer(j_probagen.generate_proba(80, 1 << 20), np.uint8)
+         if name == "p80_1MiB" else _corpus(name))
+    for part in (d, d[:9001]):
+        assert _equal(p_quad.quad_plan(part), j_quad.quad_plan(part))
+        for tlog in (0, 9, 12):
+            qp = p_quad.prep_quad_group(part, tlog)
+            assert _equal(qp, j_quad.prep_quad_group(part, tlog))
+            blob = j_quad.quad_compress(part.tobytes(), tlog)
+            assert p_quad.quad_compress(part.tobytes(), tlog) == blob
+            if blob is None:
+                continue
+            assert _equal(p_quad.parse_quad_group(blob), j_quad.parse_quad_group(blob))
+            assert _equal(p_rans.parse_rans_group(blob), j_rans.parse_rans_group(blob))
+            assert p_quad.quad_decompress(blob) == part.tobytes()
+            assert p_rans.rans_decompress(blob) == part.tobytes()
+            assert np.array_equal(
+                p_tables.pack_quad_dtable(qp["norm"], qp["quads"], qp["tlog"]),
+                j_kern.pack_quad_dtable(qp["norm"], qp["quads"], qp["tlog"]))
+    if name == "p80_1MiB":
+        assert p_quad.quad_plan(d)["esc_id"] is not None
+
+
+@pytest.mark.parametrize("name", list(CORPORA) + ["p80_1MiB"])
+def test_wire_pick_equal(name):
+    d = (np.frombuffer(j_probagen.generate_proba(80, 1 << 20), np.uint8)
+         if name == "p80_1MiB" else _corpus(name))
+    for part in (d, d[:9001]):
+        prep = j_api._prep_group(part, 10)
+        pp, qp = j_pair.prep_pair_group(part), j_quad.prep_quad_group(part)
+        for modes in ((-1, -1), (-1, 0), (0, -1), (1, 0), (0, 1), (1, 1), (0, 0)):
+            assert (p_api._pick_wire(part, prep, 10, pp, qp, *modes)
+                    == j_api._pick_wire(part, prep, 10, pp, qp, *modes))
+        for args in ((pp, qp), (pp, None), (None, qp), (None, None)):
+            assert (p_api._wire_ests(part, prep, 10, *args)
+                    == j_api._wire_ests(part, prep, 10, *args))
+    if name == "p80_1MiB":
+        assert p_api._pick_wire(d, prep, 10, pp, qp, -1, -1) == "quad"

@@ -11,13 +11,17 @@ import pytest
 import torch
 
 from finitestateentropy_tpu_torch.turbo import rans_kernels as rk
-from finitestateentropy_tpu_torch.turbo.api import (_hrows_cap, _prep_group,
+from finitestateentropy_tpu_torch.turbo.api import (STAGE_BATCH, _hrows_cap,
+                                                    _prep_group, _wire_t4,
+                                                    parse_groups, plan_decode,
+                                                    plan_encode,
                                                     stage_decode_batch,
                                                     stage_encode_batch)
 from finitestateentropy_tpu_torch.turbo.format import _pad_n
 from finitestateentropy_tpu_torch.turbo.rans import (parse_rans_group,
                                                      rans_compress)
 from finitestateentropy_tpu_torch.turbo.state import to_tensors
+from finitestateentropy_tpu_torch.turbo.tables import pack_quad_dtable
 from finitestateentropy_tpu_torch.utils import generate_proba
 
 CORPORA = {"p80": 80, "p14": 14, "p02": 2}
@@ -101,14 +105,20 @@ def test_mulhi_and_u32_helpers_at_extremes():
     assert rk._u32(rk._i32(a)).tolist() == a.tolist()
 
 
-def _step_reference(x, tbl, hw, cursor, roff, tlog):
-    """One decode step in Python ints (u32 semantics)."""
+def _step_reference(x, tbl, hw, cursor, roff, tlog, lut=None):
+    """One decode step in Python ints (u32 semantics); lut: the pair / quad
+    id LUT (the LUT modes), None for the byte wire."""
     out, flags = [], []
+    mask = (1 << tlog) - 1
     for k in range(1024):
-        slot = x[k] & ((1 << tlog) - 1)
+        slot = x[k] & mask
         e = tbl[slot]
-        out.append(e & 0xFF)
-        x[k] = (((e >> 8) & 0xFFF) * (x[k] >> tlog) + slot - (e >> 20)) & 0xFFFFFFFF
+        if lut is None:
+            out.append(e & 0xFF)
+            x[k] = (((e >> 8) & 0xFFF) * (x[k] >> tlog) + slot - (e >> 20)) & 0xFFFFFFFF
+        else:
+            out.append(lut[e >> 2 * tlog])
+            x[k] = (((e >> tlog) & mask) * (x[k] >> tlog) + (e & mask)) & 0xFFFFFFFF
         flags.append(x[k] < 1 << 16)
     for r in range(8):
         rank = roff[r]
@@ -153,6 +163,88 @@ def test_decode_steps_from_states_above_2_31():
     got = out[0].numpy().reshape(-1).view(np.uint32).tolist()
     assert got == word
     assert err.tolist() == [1]
+
+
+@pytest.mark.parametrize("mode", ["pair", "quad"])
+def test_lut_decode_steps_from_states_above_2_31(mode):
+    """The LUT modes: pair values pack as two u16 per word, quad values are
+    the whole u32 word, often >= 2^31 (the plain version masks them in
+    int64)."""
+    tlog, spc = 10, rk.SPC[mode]
+    rng = np.random.default_rng(7)
+    vals = rng.integers(0, 1 << (16 if mode == "pair" else 32), 5,
+                        dtype=np.uint64).astype(np.uint32)
+    vals[0] |= 0x80000000 if mode == "quad" else 0x8000
+    tbl = pack_quad_dtable(np.array([600, 300, 100, -1, 23], np.int32), vals,
+                           tlog)
+    init = rng.integers(1 << 31, 1 << 32, 1024, dtype=np.uint64).astype(np.uint32)
+    streams = rng.integers(-2**31, 2**31, (1, 24, 128), dtype=np.int64).astype(np.int32)
+    steptots = rng.integers(0, 40, (1, 4, 8)).astype(np.int32)
+    csize = np.array([int(steptots.sum())], np.int32)
+    ins = to_tensors("cpu", csize_hw=csize, tables=tbl[None],
+                     init_states=init.reshape(1, 8, 128), streams=streams,
+                     steptots=steptots)
+    modes = dict(u16=mode == "pair", pair=mode == "pair", quad=mode == "quad")
+    out, _err = rk.rans_decode_v2(ins["csize_hw"], ins["tables"],
+                                  ins["init_states"], ins["streams"],
+                                  ins["steptots"], 4 // spc, 24, tlog, **modes)
+    x = [int(v) for v in init]
+    t_u32 = [int(v) for v in tbl.reshape(-1).view(np.uint32)]
+    lut = t_u32[-256:]
+    hw = [int(v) for v in streams.reshape(-1).view(np.uint16)]
+    totals = steptots[0].sum(axis=1)
+    cursor = int(csize[0])
+    vs = []
+    for t in range(4):
+        roff = np.concatenate([[0], np.cumsum(steptots[0, t])[:-1]])
+        vs.append(_step_reference(x, t_u32, hw, cursor, roff, tlog, lut))
+        cursor -= int(totals[t])
+    got = out[0].numpy().reshape(-1).view(np.uint32).tolist()
+    if mode == "quad":
+        want = [v for step in vs for v in step]
+    else:
+        want = [vs[2 * t2][k] | vs[2 * t2 + 1][k] << 16
+                for t2 in range(2) for k in range(1024)]
+    assert got == want
+    assert max(want) >= 1 << 31
+
+
+def _mode_batches(data, group, **flags):
+    """The port's encode and decode batches of data at these flags, keyed
+    by wire: ({wire: (encode args)}, {wire: (decode arrays, t4, hrows,
+    tlog)}) of the first batch of each wire."""
+    from finitestateentropy_tpu_torch.turbo.api import turbo_compress_device
+
+    _n, _f, batches = plan_encode(data, group, 10, **flags)
+    enc = {}
+    for (wire, n_pad, tlog), items in batches.items():
+        fc, mg, srcw = STAGE_BATCH[wire](items, n_pad)
+        enc.setdefault(wire, (fc, mg, srcw, _wire_t4(wire, n_pad),
+                              _hrows_cap(n_pad), tlog))
+    groups = parse_groups(turbo_compress_device(data, group, device="cpu",
+                                                **flags))
+    dec = {}
+    for (wire, n_pad, tlog), idxs in plan_decode(groups)[1].items():
+        cs, tbl, init, hws, tots, t4, hrows = stage_decode_batch(
+            groups, idxs, n_pad, tlog, wire)
+        dec.setdefault(wire, (dict(csize_hw=cs, tables=tbl, init_states=init,
+                                   streams=hws, steptots=tots), t4, hrows,
+                              tlog))
+    return enc, dec
+
+
+def test_mode_batches_cover_pair_and_quad():
+    """The CPU half of the GPU mode tests below: the batches they launch
+    exist, and the plain versions decode them."""
+    enc, dec = _mode_batches(generate_proba(80, 2 << 20), 1 << 20, quad=0)
+    assert set(enc) == set(dec) == {"pair"}
+    enc, dec = _mode_batches(generate_proba(80, 9000), 9000, quad=1)
+    assert set(enc) == set(dec) == {"quad"}
+    arrays, t4, hrows, tlog = dec["quad"]
+    assert arrays["steptots"].shape[1] == 3         # odd T
+    ins = to_tensors("cpu", **arrays)
+    out, err = rk.rans_decode_plain(*ins.values(), t4, hrows, tlog, quad=True)
+    assert err.tolist() == [0]
 
 
 def test_state_carry_matches_jax_encode_interpret():
@@ -233,10 +325,10 @@ def test_cuda_encode_matches_plain(cuda):
     fc, mg, srcw, t4, hcap = _encode_batch(datas)
     ins = to_tensors(cuda, fc_tables=fc, magic_tables=mg, src_words=srcw)
     args = (ins["fc_tables"], ins["magic_tables"], ins["src_words"], t4, hcap, 10)
-    before = rk.launches["rans_encode2"]
+    before = rk.launches["rans_encode2:byte"]
     got = rk.rans_encode2(*args)
     torch.cuda.synchronize()
-    assert rk.launches["rans_encode2"] == before + 1
+    assert rk.launches["rans_encode2:byte"] == before + 1
     want = rk.rans_encode2_plain(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -254,14 +346,82 @@ def test_cuda_decode_matches_plain(cuda, entry):
     ins = to_tensors(cuda, **arrays)
     args = (ins["csize_hw"], ins["tables"], ins["init_states"],
             ins["streams"], ins["steptots"], t4, hrows)
-    before = rk.launches[entry]
+    before = rk.launches[f"{entry}:byte"]
     if entry == "rans_decode_w":
         out, err = rk.rans_decode_w(*args, 8, tlog, 64)
     else:
         out, err = rk.rans_decode_v2(*args, tlog)
     torch.cuda.synchronize()
-    assert rk.launches[entry] == before + 1
+    assert rk.launches[f"{entry}:byte"] == before + 1
     p_out, p_err = rk.rans_decode_plain(*args, tlog)
     assert torch.equal(out, p_out) and torch.equal(err, p_err)
     assert err.tolist() == [0, 0, 1]
     assert [out[j].cpu().numpy().tobytes() for j in range(2)] == datas[:2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,flags,tlog", [
+    ("pair", dict(quad=0), 9), ("pair", dict(quad=0, pair_table_log=12), 12),
+    ("quad", dict(), 10), ("quad", dict(quad=1, quad_table_log=12), 12)])
+def test_cuda_mode_encode_matches_plain(cuda, mode, flags, tlog):
+    datas = generate_proba(80, 2 << 20) + generate_proba(90, 1 << 20)
+    enc, _dec = _mode_batches(datas, 1 << 20, **flags)
+    fc, mg, srcw, t4, hcap, btlog = enc[mode]
+    assert btlog == tlog
+    ins = to_tensors(cuda, fc_tables=fc, magic_tables=mg, src_words=srcw)
+    args = (ins["fc_tables"], ins["magic_tables"], ins["src_words"], t4, hcap,
+            tlog)
+    modes = dict(u16=mode == "pair", quad=mode == "quad")
+    before = rk.launches[f"rans_encode2:{mode}"]
+    got = rk.rans_encode2(*args, **modes)
+    torch.cuda.synchronize()
+    assert rk.launches[f"rans_encode2:{mode}"] == before + 1
+    want = rk.rans_encode2_plain(*args, **modes)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["rans_decode_v2", "rans_decode_w"])
+@pytest.mark.parametrize("mode,flags", [
+    ("pair", dict(quad=0)), ("pair", dict(quad=0, pair_table_log=12)),
+    ("quad", dict()), ("quad", dict(quad=1, quad_table_log=12))])
+def test_cuda_mode_decode_matches_plain(cuda, entry, mode, flags):
+    datas = generate_proba(80, 2 << 20) + generate_proba(90, 1 << 20)
+    _enc, dec = _mode_batches(datas, 1 << 20, **flags)
+    arrays, t4, hrows, tlog = dec[mode]
+    assert arrays["tables"].shape[0] == 3
+    arrays["streams"][2, 1, 7] ^= 0x100          # corrupt the last group
+    ins = to_tensors(cuda, **arrays)
+    args = (*ins.values(), t4, hrows)
+    modes = dict(u16=mode == "pair", pair=mode == "pair", quad=mode == "quad")
+    key = f"{entry}:{mode}"
+    before = rk.launches[key]
+    if entry == "rans_decode_w":
+        out, err = rk.rans_decode_w(*args, 8, tlog, 64 if mode == "pair" else 128,
+                                    **modes)
+    else:
+        out, err = rk.rans_decode_v2(*args, tlog, **modes)
+    torch.cuda.synchronize()
+    assert rk.launches[key] == before + 1
+    p_out, p_err = rk.rans_decode_plain(*args, tlog, **modes)
+    assert torch.equal(out, p_out) and torch.equal(err, p_err)
+    assert err.tolist() == [0, 0, 1]
+
+
+@pytest.mark.gpu
+def test_cuda_quad_odd_T_matches_plain(cuda):
+    enc, dec = _mode_batches(generate_proba(80, 9000), 9000, quad=1)
+    fc, mg, srcw, t4, hcap, tlog = enc["quad"]
+    ins = to_tensors(cuda, fc_tables=fc, magic_tables=mg, src_words=srcw)
+    args = (*ins.values(), t4, hcap, tlog)
+    for g, w in zip(rk.rans_encode2(*args, quad=True),
+                    rk.rans_encode2_plain(*args, quad=True)):
+        assert torch.equal(g, w)
+    arrays, t4, hrows, tlog = dec["quad"]
+    ins = to_tensors(cuda, **arrays)
+    got = rk.rans_decode_v2(*ins.values(), t4, hrows, tlog, quad=True)
+    want = rk.rans_decode_plain(*ins.values(), t4, hrows, tlog, quad=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[1].tolist() == [0]
