@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke for finitestateentropy_tpu_torch: the TurboRANS speed-mode wires on one GPU.
+"""Chip smoke for finitestateentropy_tpu_torch: the TurboRANS codecs on one GPU.
 
 Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
@@ -9,12 +9,16 @@ Phases, one result line each:
   1. the GPU's name and power limit (nvidia-smi);
   2. build the CUDA sources of finitestateentropy_tpu_torch/csrc (nvcc, one
      process per source, started together);
-  3. each kernel in each wire mode (byte, pair, quad) against its plain
-     PyTorch version on the GPU, bit for bit, on 3 x 1 MiB groups: the
-     encode, and the decode through rans_decode_v2 and rans_decode_w with
-     one group corrupted (its err must be set, the others' not);
-  4. six paths through turbo_compress_device / turbo_decompress_device, each
-     with the launch counts set to 0 just before it and read just after:
+  3. every kernel entry in every mode against its plain PyTorch version on
+     the GPU, bit for bit, on 3-group batches (1 MiB groups; 512 Ki-symbol
+     U16 groups): the encodes (rans_encode2 byte / pair / quad, rans_encode
+     u16 / u16x), and each decode entry (rans_decode_v2 and rans_decode_w on
+     the rows and totals wires, rans_decode on v1 frames) with group 1
+     corrupted (its err must be set, the others' not);
+  4. twelve paths through the entry points (turbo_compress_device /
+     turbo_decompress_device, turbo16_compress_device /
+     turbo16_decompress_device), each with the launch counts set to 0 just
+     before it and read just after:
        default_p80_64MiB  default flags, 64 MiB of Proba80 in 1 MiB groups:
                           the main path; every group is quad @ 10, so one
                           quad encode and one quad rans_decode_w launch;
@@ -29,18 +33,35 @@ Phases, one result line each:
                           quad-escape corpus and Proba14: pair, quad and byte
                           batches through rans_decode_v2;
        byte_mixed_9000    the mixed input on the byte wire: RLE / raw /
-                          small groups.
+                          small groups;
+       ratio_p80_64MiB    ratio mode (steptots=False): v1 byte frames @ 11,
+                          one byte encode and one rans_decode launch;
+       ratio_pair_p80_8MiB
+                          pair=1 in ratio mode: v1 pair frames @ 9, one pair
+                          encode and one pair rans_decode;
+       totals_p80_64MiB, totals_p80_3MiB
+                          the totals wire (totals_only=True): one byte encode
+                          and one totals rans_decode_w (64 groups) or
+                          rans_decode_v2 (3 groups);
+       u16_pareto_64MiB   the U16 codec on 32 Mi symbols <= 1023 (the JAX
+                          package's pareto(1.2) corpus) in 64 groups: speed
+                          frames (decoded at windows=0, which routes them to
+                          rans_decode_v2, and at windows=8: rans_decode_w)
+                          and ratio frames (rans_decode);
+       u16x_pareto_16MiB  the same on 8 Mi symbols <= 4095 (pareto(1.0)),
+                          16 groups at tableLog 13, the split u16x tables.
      Every round trip gives back its input and every frame equals the
-     port's numpy twin of the wire its group was coded on (quad_compress,
-     pair_compress or rans_compress);
+     port's numpy twin of the wire and mode its group was coded in
+     (quad_compress, pair_compress, rans_compress, rans16_compress);
   5. every batch of each path, planned and staged as the entry points do
      it, through the wrappers on the GPU against the plain versions (err
-     included); the batches per entry and mode equal the path's launches;
+     included); the batches per entry and mode equal the path's launches,
+     and every entry and mode is launched by some path;
   6. end-to-end GB/s of the default-flag path (and of the byte wire), the
      entry points' own stage seconds on the default-flag path, per-step
      chain latencies (csrc/chain_probe.cu) and per-kernel-and-mode times
-     (CUDA events) at the shapes of the path each launches on, beside the
-     GPU's name and power limit.
+     (CUDA events) at the shapes of the first path that launches each,
+     beside the GPU's name and power limit.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Any failure exits nonzero with no ok line,
 as does a machine without a CUDA device.
@@ -52,35 +73,48 @@ import json
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
 
 GB = 1e9
 GROUP = 1 << 20                # the entry points' default group size
-MAIN_MIB = 64                  # the default-flag and byte-wire main paths
-PAIR_MIB = 8                   # the quad=0 (pair) path
+GROUP16 = 1 << 19              # the U16 entry points' default group (symbols)
+MAIN_MIB = 64                  # the default-flag, byte, ratio and totals paths
+PAIR_MIB = 8                   # the quad=0 (pair) and ratio pair paths
+U16_MSYMS = 32                 # Mi symbols of the u16 path (64 MiB)
+U16X_MSYMS = 8                 # Mi symbols of the u16x path (16 MiB)
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_LANES = 132 * 64         # H100 SXM: 132 SMs x 64 INT32 units (Hopper white paper)
 # 32-bit integer operations one lane-step of the rANS math needs, whatever
-# the design.  Encode: symbol extract 2 (byte p or pair id p: shift, mask;
-# quad: mask 1), two table reads 2, freq and cumul fields 3, renorm
-# threshold 2, emit and conditional shift 2, mulhi and multiply-subtract 2,
-# two corrections 6, new state 3, rank among the flagged lanes (ballot,
-# mask, popc) 3.  Byte decode: slot 1, table read 1, symbol into the output
-# word 2, freq and cumul fields 3, state multiply-add and correction 4,
-# renorm test 1, rank (ballot, mask, popc, row offset) 4, stream index 1,
-# stream read 1, state refill 2.  Pair / quad decode: slot 1, table read 1,
-# id, freq and j fields 4, LUT read 1, state multiply-add 2, renorm test 1,
-# rank 4, stream index 1, stream read 1, state refill 2, and for pair the
-# value into the output word 2 (a quad value is the word).
-ENC_OPS_PER_STEP = {"byte": 25, "pair": 25, "quad": 24}
-DEC_OPS_PER_STEP = {"byte": 20, "pair": 20, "quad": 18}
-TLOG = 10                      # the speed-mode tableLog (RANS_SPEED_TABLELOG)
-SOURCES = {"rans_encode2": "rans_encode.cu", "rans_decode_v2": "rans_decode.cu",
-           "rans_decode_w": "rans_decode.cu"}
-REPLACES = {"rans_encode2": "607", "rans_decode_v2": "1019", "rans_decode_w": "1322"}
+# the design.  Encode: symbol extract 2 (byte p, pair id p or u16 symbol p:
+# shift, mask; quad: mask 1), two table reads 2, freq and cumul fields 3,
+# renorm threshold 2, emit and conditional shift 2, mulhi and
+# multiply-subtract 2, two corrections 6, new state 3, rank among the
+# flagged lanes (ballot, mask, popc) 3.  Byte and u16 decode: slot 1, table
+# read 1, symbol into the output word 2, freq and cumul fields 3, state
+# multiply-add and correction 4, renorm test 1, rank (ballot, mask, popc,
+# row offset) 4, stream index 1, stream read 1, state refill 2.  u16x
+# decode: slot 1, table read 1, freq and j fields 2, symbol-plane read 2,
+# state multiply-add 2, symbol into the word 2, renorm test 1, rank 4,
+# stream index 1, stream read 1, state refill 2.  Pair / quad decode: slot
+# 1, table read 1, id, freq and j fields 4, LUT read 1, state multiply-add
+# 2, renorm test 1, rank 4, stream index 1, stream read 1, state refill 2,
+# and for pair the value into the output word 2 (a quad value is the
+# word).  The flat-rank decode (v1 and totals) ranks as the rows decode
+# does, with the warp's offset in the row offset's place, and adds per lane
+# the cursor's update (v1) or load (totals) 1; the prefix of the 32 warp
+# counts is 31 adds once per group-step, however many warps repeat it.
+ENC_OPS_PER_STEP = {"byte": 25, "pair": 25, "quad": 24, "u16": 25, "u16x": 25}
+DEC_OPS_PER_STEP = {"byte": 20, "pair": 20, "quad": 18, "u16": 20, "u16x": 19}
+FLAT_LANE_OPS = 1
+FLAT_SCAN_ADDS = 31
+KERNEL_LINE = {  # entry -> (TPU kernel line in finitestateentropy_tpu/turbo/rans_kernels.py)
+    "rans_encode2": "607", "rans_encode": "303", "rans_decode": "182",
+    "rans_decode_v2": "1019", "rans_decode_v2:totals": "1113",
+    "rans_decode_w": "1322"}
 
 
 def require(cond: bool, what: str) -> None:
@@ -110,19 +144,27 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def max_abs_err(got, want) -> int:
+    require(all((g is None) == (w is None) for g, w in zip(got, want)),
+            "a kernel and its plain version disagree on which outputs exist")
     return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
-               for g, w in zip(got, want))
+               for g, w in zip(got, want) if g is not None)
 
 
-def frames_of(blob: bytes) -> list[bytes]:
-    from finitestateentropy_tpu_torch.turbo.rans import parse_rans_group
+def source_of(key: str) -> str:
+    entry, mode = key.split(":")
+    if entry.startswith("rans_encode"):
+        name = "rans_encode.cu"
+    elif entry == "rans_decode" or mode == "totals":
+        name = "rans_decode_flat.cu"
+    else:
+        name = "rans_decode.cu"
+    return "finitestateentropy_tpu_torch/csrc/" + name
 
-    out, pos = [], 0
-    while pos < len(blob):
-        _g, used = parse_rans_group(blob[pos:])
-        out.append(blob[pos:pos + used])
-        pos += used
-    return out
+
+def replaces(key: str) -> str:
+    entry = key.split(":")[0]
+    return ("finitestateentropy_tpu/turbo/rans_kernels.py:"
+            + KERNEL_LINE.get(key, KERNEL_LINE[entry]))
 
 
 def pair_escape_corpus(n: int, seed: int = 3) -> bytes:
@@ -143,6 +185,15 @@ def quad_escape_corpus(n: int, seed: int = 13) -> bytes:
     hot[rng.choice(n // 4, size=260, replace=False)] = \
         (np.arange(260) * 9719 + 77).astype(np.uint32)
     return hot.astype("<u4").tobytes()[:n]
+
+
+def u16_corpus(n: int, wide: bool, seed: int = 0) -> np.ndarray:
+    """The JAX package's U16 corpora (tests/test_turbo.py:287, :386):
+    pareto(1.2)*50 clipped at 1023, or pareto(1.0)*300 clipped at 4095."""
+    rng = np.random.default_rng(seed)
+    a, scale, top = (1.0, 300, 4095) if wide else (1.2, 50, 1023)
+    return np.clip((rng.pareto(a, n) * scale).astype(np.int64), 0,
+                   top).astype(np.uint16)
 
 
 def chain_step_ns() -> dict:
@@ -191,6 +242,19 @@ def bound(nbytes: int, ops: int, steps: int, step_ns: float,
             "chain_bound_ms": t_chain}
 
 
+class Piece:
+    """One call of a compress entry point and the decompress calls of its
+    output: codec "turbo" (bytes) or "turbo16" (u16 symbols)."""
+
+    def __init__(self, codec, data, group, flags=None, windows=(0,)):
+        self.codec, self.data, self.group = codec, data, group
+        self.flags, self.windows = flags or {}, windows
+
+    @property
+    def nbytes(self) -> int:
+        return len(self.data) * (2 if self.codec == "turbo16" else 1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -201,18 +265,24 @@ def main() -> int:
     from finitestateentropy_tpu_torch.turbo.pair import pair_compress
     from finitestateentropy_tpu_torch.turbo.quad import quad_compress
     from finitestateentropy_tpu_torch.turbo.rans import rans_compress
+    from finitestateentropy_tpu_torch.turbo.rans16 import rans16_compress
     from finitestateentropy_tpu_torch.turbo.state import to_tensors
     from finitestateentropy_tpu_torch.utils import generate_proba
 
-    group = GROUP
-    modes_of = {"byte": {}, "pair": dict(u16=True, pair=True),
-                "quad": dict(quad=True)}
+    def compress(p: Piece) -> bytes:
+        if p.codec == "turbo16":
+            return api.turbo16_compress_device(p.data, p.group, device=DEV,
+                                               **p.flags)
+        return api.turbo_compress_device(p.data, p.group, device=DEV, **p.flags)
 
-    def compress(data, gs=group, **flags):
-        return api.turbo_compress_device(data, gs, device=DEV, **flags)
+    def decompress(p: Piece, blob: bytes, windows: int):
+        if p.codec == "turbo16":
+            return api.turbo16_decompress_device(blob, windows, device=DEV)
+        return api.turbo_decompress_device(blob, windows=windows, device=DEV)
 
-    def decompress(blob):
-        return api.turbo_decompress_device(blob, device=DEV)
+    def same(p: Piece, back) -> bool:
+        return (np.array_equal(back, p.data) if p.codec == "turbo16"
+                else back == p.data)
 
     # 1. the card
     gpu = nvidia_smi("name,power.limit")
@@ -226,64 +296,157 @@ def main() -> int:
                       "built": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
                                 for k, v in built.items()}}), flush=True)
 
-    def encode_batches(data, gs, **flags):
-        """[(wire, wrapper args, mode flags)] of every encode batch, planned
-        and staged as turbo_compress_device does it."""
-        _n, _frames, batches = api.plan_encode(data, gs, TLOG, **flags)
+    def encode_batches(p: Piece) -> list[dict]:
+        """Every encode batch of p, planned and staged as the compress
+        entry point does it: {key, run (the wrapper), plain, kernel (the
+        bare launch), G, steps, ops, nbytes(kernel output), chain}."""
         out = []
-        for (wire, n_pad, tlog), items in batches.items():
-            fc, mg, srcw = api.STAGE_BATCH[wire](items, n_pad)
-            ins = to_tensors(DEV, fc_tables=fc, magic_tables=mg, src_words=srcw)
-            out.append((wire, (ins["fc_tables"], ins["magic_tables"],
-                               ins["src_words"], api._wire_t4(wire, n_pad),
-                               api._hrows_cap(n_pad), tlog),
-                        dict(u16=wire == "pair", quad=wire == "quad")))
+        if p.codec == "turbo":
+            f = p.flags
+            tlog0, pair, quad = api.mode_flags(
+                f.get("table_log", 0), f.get("steptots", True),
+                f.get("totals_only", False), f.get("pair", -1), f.get("quad", -1))
+            _n, _f, batches = api.plan_encode(p.data, p.group, tlog0, pair, quad)
+            for (wire, n_pad, tlog), items in batches.items():
+                fc, mg, srcw = api.STAGE_BATCH[wire](items, n_pad)
+                ins = to_tensors(DEV, fc_tables=fc, magic_tables=mg, src_words=srcw)
+                t4 = api._wire_t4(wire, n_pad)
+                args = (*ins.values(), t4, api._hrows_cap(n_pad), tlog)
+                mf = dict(u16=wire == "pair", quad=wire == "quad")
+                out.append(dict(
+                    key=f"rans_encode2:{wire}", mode=wire,
+                    run=partial(rk.rans_encode2, *args, **mf),
+                    plain=partial(rk.rans_encode2_plain, *args, **mf),
+                    kernel=partial(rk._encode_kernel, *args, wire),
+                    G=len(items), steps=rk.SPC[wire] * t4, out_hw=2,
+                    tbl_bytes=fc.nbytes + mg.nbytes, src_bytes=srcw.nbytes,
+                    chain="encode"))
+        else:
+            steptots = p.flags.get("steptots", True)
+            _n, _f, batches = api.plan_encode16(p.data, p.group, steptots)
+            for (n_pad, big, tlog), items in batches.items():
+                fc, mg, srcw = api.stage_encode16_batch(items, n_pad, big)
+                ins = to_tensors(DEV, fc_tables=fc, magic_tables=mg, src_words=srcw)
+                t2, hcap = n_pad // 2048, api._round8(n_pad // 128 + 16)
+                mode = "u16x" if big else "u16"
+                args = (*ins.values(), t2, hcap)
+                out.append(dict(
+                    key=f"rans_encode:{mode}", mode=mode,
+                    run=partial(rk.rans_encode, *args, True, tlog, steptots),
+                    plain=partial(rk.rans_encode_plain, *args, True, tlog, steptots),
+                    kernel=partial(rk._encode16_kernel, *args, tlog, mode),
+                    G=len(items), steps=2 * t2, out_hw=4,
+                    tbl_bytes=fc.nbytes + mg.nbytes, src_bytes=srcw.nbytes,
+                    chain="encode"))
+        for b in out:
+            b["ops"] = ENC_OPS_PER_STEP[b["mode"]] * b["G"] * b["steps"] * 1024
+            # src once, tables once, the payload halfwords (one per word on
+            # the U16 encode), finals, csize and the step counts
+            b["nbytes"] = lambda o, b=b: (
+                b["src_bytes"] + b["tbl_bytes"]
+                + b["out_hw"] * int(o[2].long().sum()) + b["G"] * (4096 + 4)
+                + b["G"] * b["steps"] * 8 * 4)
         return out
 
-    def decode_batches(blob, windows=0):
-        """[(entry, wire, wrapper args, tlog, (nway, S))] of every decode
-        batch, as turbo_decompress_device routes it."""
-        groups = api.parse_groups(blob)
+    def decode_batches(p: Piece, blob: bytes, windows: int) -> list[dict]:
+        """Every decode batch of blob, planned, staged and routed as the
+        decompress entry point does it (same fields as encode_batches)."""
+        staged = []
+        if p.codec == "turbo":
+            groups = api.parse_groups(blob)
+            for (wire, n_pad, tlog, kind), idxs in api.plan_decode(groups)[1].items():
+                arrays = api.stage_decode_batch(groups, idxs, n_pad, tlog, wire, kind)
+                flags = dict(u16=wire == "pair", pair=wire == "pair",
+                             quad=wire == "quad")
+                staged.append((arrays, tlog, kind, wire, flags))
+        else:
+            groups = api.parse_groups16(blob)
+            for (n_pad, tlog, tots, big), idxs in api.plan_decode16(groups)[1].items():
+                arrays = api.stage_decode16_batch(groups, idxs, n_pad, tlog, tots, big)
+                staged.append((arrays, tlog, 2 if tots else 0,
+                               "u16x" if big else "u16", dict(u16=True, u16x=big)))
         out = []
-        for (wire, n_pad, tlog), idxs in api.plan_decode(groups)[1].items():
-            cs, tbl, init, hws, tots, t4, hrows = api.stage_decode_batch(
-                groups, idxs, n_pad, tlog, wire)
+        for (cs, tbl, init, hws, tots, t4, hrows), tlog, kind, mode, flags in staged:
             ins = to_tensors(DEV, csize_hw=cs, tables=tbl, init_states=init,
-                             streams=hws, steptots=tots)
-            args = (ins["csize_hw"], ins["tables"], ins["init_states"],
-                    ins["streams"], ins["steptots"], t4, hrows)
-            w = api._window_dispatch(windows, t4, hrows, tlog, len(idxs),
-                                     wire == "pair", wire == "quad")
-            out.append(("rans_decode_w" if w[0] else "rans_decode_v2", wire,
-                        args, tlog, w))
+                             streams=hws)
+            common = tuple(ins.values())
+            G = len(cs)
+            b = dict(mode=mode, G=G, steps=rk.SPC[mode] * t4, streams=ins["streams"],
+                     csize=ins["csize_hw"], chain="flat")
+            if kind == 0:
+                v1 = {k: v for k, v in flags.items() if k != "quad"}
+                b.update(key=f"rans_decode:{mode}",
+                         run=partial(rk.rans_decode, *common, t4, hrows, tlog=tlog, **v1),
+                         plain=partial(rk.rans_decode_v1_plain, *common, t4, hrows,
+                                       tlog=tlog, **v1),
+                         kernel=partial(rk._decode_flat_kernel, *common[1:3], common[3],
+                                        common[0], None, t4, tlog, mode),
+                         tots_bytes=0)
+            else:
+                st = to_tensors(DEV, steptots=tots)["steptots"]
+                nway, S = api._window_dispatch(windows, t4, hrows, tlog, G,
+                                               kind == 1, **flags)
+                entry = "rans_decode_w" if nway else "rans_decode_v2"
+                cursors, roff, _bad = rk._decode_prep(ins["csize_hw"], st)
+                if nway:
+                    run = partial(rk.rans_decode_w, *common, st, t4, hrows, nway,
+                                  tlog, S, **flags)
+                else:
+                    run = partial(rk.rans_decode_v2, *common, st, t4, hrows, tlog,
+                                  **flags)
+                if kind == 1:
+                    kernel = partial(rk._decode_flat_kernel, *common[1:3], common[3],
+                                     common[0], cursors, t4, tlog, mode)
+                else:
+                    kernel = partial(rk._decode_kernel, *common[1:], cursors, roff,
+                                     t4, tlog, mode)
+                    b["chain"] = "rows"
+                b.update(key=f"{entry}:{'totals' if kind == 1 else mode}", run=run,
+                         plain=partial(rk.rans_decode_plain, *common, st, t4, hrows,
+                                       tlog, **flags),
+                         kernel=kernel, tots_bytes=tots.nbytes)
+            flat = b["chain"] == "flat"
+            b["ops"] = G * b["steps"] * (
+                (DEC_OPS_PER_STEP[mode] + (FLAT_LANE_OPS if flat else 0)) * 1024
+                + (FLAT_SCAN_ADDS if flat else 0))
+            # payload halfwords, tables, init states, step counts, csize once;
+            # the output words and err once
+            nb = (2 * int(cs.astype(np.int64).sum()) + tbl.nbytes + init.nbytes
+                  + b["tots_bytes"] + cs.nbytes + G * t4 * 4096 + G * 4)
+            b["nbytes"] = lambda o, nb=nb: nb
+            out.append(b)
         return out
 
-    def run_decode(entry, wire, args, tlog, w):
-        if entry == "rans_decode_w":
-            return rk.rans_decode_w(*args, w[0], tlog, w[1], **modes_of[wire])
-        return rk.rans_decode_v2(*args, tlog, **modes_of[wire])
-
-    # 3. each kernel and mode against its plain version, a group corrupted
-    corpus = generate_proba(80, max(MAIN_MIB, PAIR_MIB) * group)
+    # 3. each kernel entry and mode against its plain version, a group corrupted
+    corpus = generate_proba(80, max(MAIN_MIB, PAIR_MIB) * GROUP)
+    u16_syms = u16_corpus(U16_MSYMS << 20, False)
+    u16x_syms = u16_corpus(U16X_MSYMS << 20, True)
     errs = dict.fromkeys(rk.launches, 0)
-    flags_of = {"byte": dict(pair=0, quad=0), "pair": dict(quad=0), "quad": {}}
-    for wire, flags in flags_of.items():
-        three = corpus[:3 * group]
-        (w_, enc, mflags), = encode_batches(three, group, **flags)
-        require(w_ == wire, f"3 x 1 MiB at {flags} coded {w_}, not {wire}")
-        got, want = rk.rans_encode2(*enc, **mflags), rk.rans_encode2_plain(*enc, **mflags)
-        torch.cuda.synchronize()
-        errs[f"rans_encode2:{wire}"] = max_abs_err(got, want)
-        (_e, w2, args, tlog, _w), = decode_batches(compress(three, **flags), windows=1)
-        args[3][1].view(-1)[int(args[0][1]) // 4] ^= 1 << 9   # corrupt group 1
-        want = rk.rans_decode_plain(*args, tlog, **modes_of[wire])
-        for entry, win in (("rans_decode_v2", (0, 0)),
-                           ("rans_decode_w", (8, 128 // rk.SPC[wire]))):
-            got = run_decode(entry, wire, args, tlog, win)
-            torch.cuda.synchronize()
-            errs[f"{entry}:{wire}"] = max_abs_err(got, want)
-            require(got[1].tolist() == [0, 1, 0],
-                    f"{entry}:{wire}: corrupt group not flagged: {got[1].tolist()}")
+    three, three16, three16x = (corpus[:3 * GROUP], u16_syms[:3 * GROUP16],
+                                u16x_syms[:3 * GROUP16])
+    cases = [Piece("turbo", three, GROUP, f) for f in (
+        dict(pair=0, quad=0), dict(quad=0), {}, dict(steptots=False),
+        dict(pair=1, steptots=False), dict(totals_only=True))]
+    cases += [Piece("turbo16", s, GROUP16, dict(steptots=st))
+              for s in (three16, three16x) for st in (True, False)]
+    checked = set()
+    for p in cases:
+        for b in encode_batches(p):
+            errs[b["key"]] = max(errs[b["key"]], max_abs_err(b["run"](), b["plain"]()))
+            checked.add(b["key"])
+        blob = compress(p)
+        for windows in (1, 8):          # the resident and the windowed entry
+            for b in decode_batches(p, blob, windows):
+                require(b["G"] == 3, f"{b['key']}: {b['G']} groups, not 3")
+                b["streams"][1].view(-1)[int(b["csize"][1]) // 4] ^= 1 << 9
+                want, got = b["plain"](), b["run"]()
+                torch.cuda.synchronize()
+                errs[b["key"]] = max(errs[b["key"]], max_abs_err(got, want))
+                require(got[1].tolist() == [0, 1, 0],
+                        f"{b['key']}: corrupt group not flagged: {got[1].tolist()}")
+                checked.add(b["key"])
+    require(checked == set(rk.launches),
+            f"not checked against plain: {sorted(set(rk.launches) - checked)}")
     require(max(errs.values()) == 0, f"a kernel differs from its plain version: {errs}")
     print(json.dumps({"phase": "kernel_vs_plain", "max_abs_err": errs,
                       "corrupt_group_err": [0, 1, 0]}), flush=True)
@@ -296,34 +459,62 @@ def main() -> int:
     small64 = (generate_proba(90, 1 << 16) + pair_escape_corpus(1 << 16)
                + quad_escape_corpus(1 << 16) + generate_proba(14, 1 << 16))
     byte = dict(pair=0, quad=0)
-    # each kernel and mode is timed at the first path that launches it, so
-    # the byte wire's 64 MiB and 3 MiB paths come before the mixed ones
-    paths = {"default_p80_64MiB": [(corpus[:MAIN_MIB * group], group, {})],
-             "quad0_p80_8MiB": [(corpus[:PAIR_MIB * group], group, dict(quad=0))],
-             "byte_p80_64MiB": [(corpus[:MAIN_MIB * group], group, byte)],
-             "byte_p80_3MiB": [(generate_proba(80, 3 * group), group, byte)],
-             "default_mixed": [(mixed, 9000, {}), (small64, 1 << 16, {})],
-             "byte_mixed_9000": [(mixed, 9000, byte)]}
-    decompress(compress(corpus[:group]))             # warm-up
+    main_data, pair_data = corpus[:MAIN_MIB * GROUP], corpus[:PAIR_MIB * GROUP]
+    p80_3 = generate_proba(80, 3 * GROUP)
+    # each kernel and mode is timed at the first path that launches it
+    paths = {
+        "default_p80_64MiB": [Piece("turbo", main_data, GROUP)],
+        "quad0_p80_8MiB": [Piece("turbo", pair_data, GROUP, dict(quad=0))],
+        "byte_p80_64MiB": [Piece("turbo", main_data, GROUP, byte)],
+        "byte_p80_3MiB": [Piece("turbo", p80_3, GROUP, byte)],
+        "default_mixed": [Piece("turbo", mixed, 9000),
+                          Piece("turbo", small64, 1 << 16)],
+        "byte_mixed_9000": [Piece("turbo", mixed, 9000, byte)],
+        "ratio_p80_64MiB": [Piece("turbo", main_data, GROUP, dict(steptots=False))],
+        "ratio_pair_p80_8MiB": [Piece("turbo", pair_data, GROUP,
+                                      dict(pair=1, steptots=False))],
+        "totals_p80_64MiB": [Piece("turbo", main_data, GROUP, dict(totals_only=True))],
+        "totals_p80_3MiB": [Piece("turbo", p80_3, GROUP, dict(totals_only=True))],
+        "u16_pareto_64MiB": [
+            Piece("turbo16", u16_syms, GROUP16, dict(steptots=True), (0, 8)),
+            Piece("turbo16", u16_syms, GROUP16, dict(steptots=False))],
+        "u16x_pareto_16MiB": [
+            Piece("turbo16", u16x_syms, GROUP16, dict(steptots=True), (0, 8)),
+            Piece("turbo16", u16x_syms, GROUP16, dict(steptots=False))],
+    }
+    warm = Piece("turbo", corpus[:GROUP], GROUP)
+    decompress(warm, compress(warm), 0)
     blobs, launches, e2e_s = {}, {}, {}
     for name, pieces in paths.items():
         rk.reset_launches()
         torch.cuda.synchronize()
-        for k, (data, gs, flags) in enumerate(pieces):
+        for k, p in enumerate(pieces):
             t0 = time.perf_counter()
-            blob = compress(data, gs, **flags)
-            t_c = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            back = decompress(blob)
-            t_d = time.perf_counter() - t0
-            require(back == data, f"{name}: round trip of piece {k}")
-            blobs[(name, k)], e2e_s[(name, k)] = blob, (t_c, t_d)
+            blob = compress(p)
+            secs = [time.perf_counter() - t0]
+            for windows in p.windows:
+                t0 = time.perf_counter()
+                back = decompress(p, blob, windows)
+                secs.append(time.perf_counter() - t0)
+                require(same(p, back), f"{name}: round trip of piece {k} "
+                                       f"(windows={windows})")
+            blobs[(name, k)], e2e_s[f"{name}/{k}"] = blob, secs
         launches[name] = {k: v for k, v in rk.launches.items() if v}
-    print(json.dumps({"phase": "main_path", "launches": launches}), flush=True)
-    expect = {"default_p80_64MiB": {"rans_encode2:quad": 1, "rans_decode_w:quad": 1},
-              "quad0_p80_8MiB": {"rans_encode2:pair": 1, "rans_decode_w:pair": 1},
-              "byte_p80_64MiB": {"rans_encode2:byte": 1, "rans_decode_w:byte": 1},
-              "byte_p80_3MiB": {"rans_encode2:byte": 1, "rans_decode_v2:byte": 1}}
+    print(json.dumps({"phase": "main_path", "launches": launches,
+                      "seconds_compress_then_decompress": e2e_s}), flush=True)
+    expect = {
+        "default_p80_64MiB": {"rans_encode2:quad": 1, "rans_decode_w:quad": 1},
+        "quad0_p80_8MiB": {"rans_encode2:pair": 1, "rans_decode_w:pair": 1},
+        "byte_p80_64MiB": {"rans_encode2:byte": 1, "rans_decode_w:byte": 1},
+        "byte_p80_3MiB": {"rans_encode2:byte": 1, "rans_decode_v2:byte": 1},
+        "ratio_p80_64MiB": {"rans_encode2:byte": 1, "rans_decode:byte": 1},
+        "ratio_pair_p80_8MiB": {"rans_encode2:pair": 1, "rans_decode:pair": 1},
+        "totals_p80_64MiB": {"rans_encode2:byte": 1, "rans_decode_w:totals": 1},
+        "totals_p80_3MiB": {"rans_encode2:byte": 1, "rans_decode_v2:totals": 1},
+        "u16_pareto_64MiB": {"rans_encode:u16": 2, "rans_decode_v2:u16": 1,
+                             "rans_decode_w:u16": 1, "rans_decode:u16": 1},
+        "u16x_pareto_16MiB": {"rans_encode:u16x": 2, "rans_decode_v2:u16x": 1,
+                              "rans_decode_w:u16x": 1, "rans_decode:u16x": 1}}
     for name, want in expect.items():
         require(launches[name] == want, f"{name} routes: {launches[name]}")
     for name, need in (("default_mixed", ("pair", "quad", "byte")),
@@ -334,55 +525,82 @@ def main() -> int:
                 and not any(k.startswith("rans_decode_w") for k in got),
                 f"{name} routes: {got}")
 
-    # every frame equals the twin of the wire its group was coded on
-    twins = {"quad": quad_compress, "pair": pair_compress, "byte": rans_compress}
+    # every frame equals the twin of the wire and mode its group was coded in
+    def frames_of(p: Piece, blob: bytes) -> list[bytes]:
+        parse = (api.parse_rans16_group if p.codec == "turbo16"
+                 else api.parse_rans_group)
+        out, pos = [], 0
+        while pos < len(blob):
+            _g, used = parse(blob[pos:])
+            out.append(blob[pos:pos + used])
+            pos += used
+        return out
+
+    def wires_of(p: Piece) -> dict:
+        """{group index: wire} of p's coded groups (RLE and raw: absent)."""
+        if p.codec == "turbo16":
+            return {}
+        f = p.flags
+        tlog0, pair, quad = api.mode_flags(
+            0, f.get("steptots", True), f.get("totals_only", False),
+            f.get("pair", -1), f.get("quad", -1))
+        _n, _f, batches = api.plan_encode(p.data, p.group, tlog0, pair, quad)
+        return {gi: wire for (wire, _p, _t), items in batches.items()
+                for gi, _ch, _prep in items}
+
     n_frames, wires_seen = 0, {}
     for name, pieces in paths.items():
-        for k, (data, gs, flags) in enumerate(pieces):
-            frames = frames_of(blobs[(name, k)])
-            require(len(frames) == -(-len(data) // gs), f"{name}: group count")
-            _n, _f, batches = api.plan_encode(data, gs, TLOG, **flags)
-            wire_of = {gi: wire for (wire, _p, _t), items in batches.items()
-                       for gi, _ch, _prep in items}
+        for k, p in enumerate(pieces):
+            frames = frames_of(p, blobs[(name, k)])
+            require(len(frames) == -(-len(p.data) // p.group), f"{name}: group count")
+            st, tot = p.flags.get("steptots", True), p.flags.get("totals_only", False)
+            wire_of = wires_of(p)
             for i, f in enumerate(frames):
-                ch = data[i * gs:(i + 1) * gs]
-                wire = wire_of.get(i, "byte")       # RLE / raw: the byte twin's
-                want = twins[wire](ch)
-                require(f == (rans_compress(ch) if want is None else want),
-                        f"{name}: frame {i} differs from the {wire} twin")
-                wires_seen.setdefault(name, []).append(wire)
+                ch = p.data[i * p.group:(i + 1) * p.group]
+                if p.codec == "turbo16":
+                    wire, want = "u16", rans16_compress(ch, st)
+                else:
+                    wire = wire_of.get(i, "byte")       # RLE / raw: the byte twin's
+                    want = (quad_compress(ch) if wire == "quad"
+                            else pair_compress(ch, steptots=st) if wire == "pair"
+                            else None)
+                    if want is None:
+                        want = rans_compress(ch, steptots=st, totals_only=tot)
+                require(f == want, f"{name}: frame {i} differs from the {wire} twin")
+                wires_seen.setdefault(name, set()).add(wire)
             n_frames += len(frames)
-    require(set(wires_seen["default_p80_64MiB"]) == {"quad"}, "main path not all quad")
-    require(set(wires_seen["quad0_p80_8MiB"]) == {"pair"}, "quad=0 path not all pair")
-    ratio = {p: len(paths[p][0][0]) / len(blobs[(p, 0)])
-             for p in ("default_p80_64MiB", "quad0_p80_8MiB", "byte_p80_64MiB")}
+    require(wires_seen["default_p80_64MiB"] == {"quad"}, "main path not all quad")
+    require(wires_seen["quad0_p80_8MiB"] == {"pair"}, "quad=0 path not all pair")
+    require(wires_seen["ratio_pair_p80_8MiB"] == {"pair"}, "ratio pair path not all pair")
+    ratio = {f"{n}/{k}": paths[n][k].nbytes / len(blobs[(n, k)])
+             for n, k in (("default_p80_64MiB", 0), ("quad0_p80_8MiB", 0),
+                          ("byte_p80_64MiB", 0), ("ratio_p80_64MiB", 0),
+                          ("ratio_pair_p80_8MiB", 0), ("totals_p80_64MiB", 0),
+                          ("u16_pareto_64MiB", 0), ("u16_pareto_64MiB", 1),
+                          ("u16x_pareto_16MiB", 0), ("u16x_pareto_16MiB", 1))}
     print(json.dumps({"phase": "frames_vs_twin", "frames": n_frames,
-                      "wires": {p: sorted(set(w)) for p, w in wires_seen.items()},
-                      "ratio_p80": ratio}), flush=True)
+                      "wires": {p: sorted(w) for p, w in wires_seen.items()},
+                      "ratio": ratio}), flush=True)
 
     # 5. every batch of every path: the wrappers against the plain versions
     shapes, path_errs = {}, {}
     for name, pieces in paths.items():
-        perr, batches = {}, {}
-        for k, (data, gs, flags) in enumerate(pieces):
-            for wire, args, mflags in encode_batches(data, gs, **flags):
-                key = f"rans_encode2:{wire}"
-                perr[key] = max(perr.get(key, 0), max_abs_err(
-                    rk.rans_encode2(*args, **mflags),
-                    rk.rans_encode2_plain(*args, **mflags)))
-                batches[key] = batches.get(key, 0) + 1
-                shapes.setdefault(key, (name, args))
-            for entry, wire, args, tlog, w in decode_batches(blobs[(name, k)]):
-                key = f"{entry}:{wire}"
-                got = run_decode(entry, wire, args, tlog, w)
-                want = rk.rans_decode_plain(*args, tlog, **modes_of[wire])
-                require(not want[1].any(), f"{name}: plain decode flags a clean group")
+        perr, counts = {}, {}
+        for k, p in enumerate(pieces):
+            batches = encode_batches(p)
+            for windows in p.windows:
+                batches += decode_batches(p, blobs[(name, k)], windows)
+            for b in batches:
+                key = b["key"]
+                got, want = b["run"](), b["plain"]()
+                if not key.startswith("rans_encode"):
+                    require(not want[1].any(), f"{name}: plain decode flags a clean group")
                 perr[key] = max(perr.get(key, 0), max_abs_err(got, want))
-                batches[key] = batches.get(key, 0) + 1
-                shapes.setdefault(key, (name, (args, tlog)))
+                counts[key] = counts.get(key, 0) + 1
+                shapes.setdefault(key, (name, b))
         torch.cuda.synchronize()
-        require(batches == launches[name],
-                f"{name}: launches {launches[name]} != batches {batches}")
+        require(counts == launches[name],
+                f"{name}: launches {launches[name]} != batches {counts}")
         require(max(perr.values()) == 0, f"{name}: a wrapper differs from plain: {perr}")
         path_errs[name] = perr
         for key, v in perr.items():
@@ -390,34 +608,34 @@ def main() -> int:
     require(set(shapes) == set(rk.launches), f"kernels never launched: "
             f"{sorted(set(rk.launches) - set(shapes))}")
     print(json.dumps({"phase": "path_kernels_vs_plain", "max_abs_err": path_errs,
-                      "timed_on": {k: p for k, (p, _a) in shapes.items()}}),
+                      "timed_on": {k: p for k, (p, _b) in shapes.items()}}),
           flush=True)
 
     # 6. timings: end to end on the default flags (and the byte wire)
-    main = corpus[:MAIN_MIB * group]
-    e2e = {"gpu": gpu, "input_bytes": len(main)}
+    e2e = {"gpu": gpu, "input_bytes": len(main_data)}
     for name, flags in (("default", {}), ("byte", byte)):
-        first = e2e_s[(f"{name}_p80_64MiB", 0)]
+        p = Piece("turbo", main_data, GROUP, flags)
+        first = e2e_s[f"{name}_p80_64MiB/0"]
         comp_s, decomp_s = [first[0]], [first[1]]
         for _ in range(2):
             t0 = time.perf_counter()
-            b2 = compress(main, **flags)
+            b2 = compress(p)
             comp_s.append(time.perf_counter() - t0)
             t0 = time.perf_counter()
-            decompress(b2)
+            decompress(p, b2, 0)
             decomp_s.append(time.perf_counter() - t0)
         e2e[name] = {"compress_s": comp_s, "decompress_s": decomp_s,
-                     "compress_GBps_median": len(main) / sorted(comp_s)[1] / GB,
-                     "decompress_GBps_median": len(main) / sorted(decomp_s)[1] / GB}
+                     "compress_GBps_median": len(main_data) / sorted(comp_s)[1] / GB,
+                     "decompress_GBps_median": len(main_data) / sorted(decomp_s)[1] / GB}
     print(json.dumps({"phase": "end_to_end", **e2e}), flush=True)
 
     # the entry points' own stage seconds (api.stage_seconds), one call each
     api.stage_seconds = {}
     t0 = time.perf_counter()
-    b2 = compress(main)
+    b2 = api.turbo_compress_device(main_data, device=DEV)
     c_total = time.perf_counter() - t0
     t0 = time.perf_counter()
-    decompress(b2)
+    api.turbo_decompress_device(b2, device=DEV)
     d_total = time.perf_counter() - t0
     st, api.stage_seconds = api.stage_seconds, None
     for side, total in (("c", c_total), ("d", d_total)):
@@ -428,51 +646,26 @@ def main() -> int:
                       "path": "default_p80_64MiB", "seconds": st}), flush=True)
 
     step_ns = chain_step_ns()
-    chain = {"rans_encode2": step_ns["barrier_1024"],
-             "rans_decode": step_ns["smem"] + step_ns["barrier_128"]
-             + step_ns["global_l1"]}
+    chain = {"encode": step_ns["barrier_1024"],
+             "rows": step_ns["smem"] + step_ns["barrier_128"] + step_ns["global_l1"],
+             "flat": step_ns["smem"] + step_ns["barrier_1024"] + step_ns["global_l1"]}
     print(json.dumps({"phase": "chain_probe", "gpu": gpu, "ns_per_step": step_ns,
                       "chain_step_ns": chain}), flush=True)
 
     rows = []
     for key in rk.launches:                    # every entry, every mode
-        entry, wire = key.split(":")
-        path, a = shapes[key]
-        spc = rk.SPC[wire]
-        if entry == "rans_encode2":
-            G, t4, tlog = a[0].shape[0], a[3], a[5]
-            mflags = dict(u16=wire == "pair", quad=wire == "quad")
-            ms = cuda_ms(lambda: rk._encode_kernel(*a, wire), 5)
-            plain_ms = cuda_ms(lambda: rk.rans_encode2_plain(*a, **mflags), 1)
-            csize = rk._encode_kernel(*a, wire)[2]
-            nbytes = (G * t4 * 4096 + G * 2 * 2 * 128 * 4
-                      + 2 * int(csize.long().sum()) + G * 4096 + G * 4
-                      + G * spc * t4 * 8 * 4)
-            ops = ENC_OPS_PER_STEP[wire] * G * spc * t4 * 1024
-            step = chain["rans_encode2"]
-        else:
-            args, tlog = a
-            cs, tbl, ini, strm, tots, t4, _hrows = args
-            cursors, roff, _bad = rk._decode_prep(cs, tots)
-            G = tbl.shape[0]
-            ms = cuda_ms(lambda: rk._decode_kernel(tbl, ini, strm, cursors, roff,
-                                                   t4, tlog, wire), 5)
-            plain_ms = cuda_ms(lambda: rk.rans_decode_plain(
-                *args, tlog, **modes_of[wire]), 1)
-            nbytes = (2 * int(cs.long().sum()) + tbl.numel() * 4 + G * 4096
-                      + tots.numel() * 4 + G * 4 + G * t4 * 4096 + G * 4)
-            ops = DEC_OPS_PER_STEP[wire] * G * spc * t4 * 1024
-            step = chain["rans_decode"]
-        rows.append({"name": key, "route": "cuda",
-                     "source": "finitestateentropy_tpu_torch/csrc/" + SOURCES[entry],
-                     "replaces": "finitestateentropy_tpu/turbo/rans_kernels.py:"
-                                 + REPLACES[entry],
+        path, b = shapes[key]
+        ms = cuda_ms(b["kernel"], 5)
+        plain_ms = cuda_ms(b["plain"], 1)
+        nbytes = b["nbytes"](b["kernel"]())
+        rows.append({"name": key, "route": "cuda", "source": source_of(key),
+                     "replaces": replaces(key),
                      "path": path, "launches": launches[path].get(key, 0),
                      "launches_by_path": {p: c.get(key, 0) for p, c in launches.items()},
                      "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
-                     **bound(nbytes, ops, spc * t4, step, clock_hz),
-                     "library_ms": None, "groups": G, "steps": spc * t4,
-                     "ns_per_step": ms * 1e6 / (spc * t4)})
+                     **bound(nbytes, b["ops"], b["steps"], chain[b["chain"]], clock_hz),
+                     "library_ms": None, "groups": b["G"], "steps": b["steps"],
+                     "ns_per_step": ms * 1e6 / b["steps"]})
     print(json.dumps({"phase": "kernel_times", "gpu": gpu,
                       "clocks_sm_power_draw": nvidia_smi("clocks.sm,clocks.max.sm,power.draw"),
                       "library": "no single PyTorch call computes rANS: library_ms is null"}),

@@ -14,8 +14,8 @@ Package layout (each module's counterpart has the same path in the JAX
 package):
   refimpl/   hist, normalization and NCount (reference-exact host code).
   utils/     debug logging and the probaGenerator twin.
-  turbo/     the TurboRANS wires (rans.py and format.py: byte; pair.py
-             and rans16.py: pair; quad.py: quad), the table packers
+  turbo/     the TurboRANS wires (rans.py and format.py: byte; pair.py:
+             pair; quad.py: quad; rans16.py: the U16 codec), the table packers
              (tables.py), the kernel wrappers (rans_kernels.py), the
              state carry-across (state.py) and the entry points (api.py).
   csrc/      the CUDA kernels.

@@ -1,20 +1,16 @@
 // TurboRANS decode for Hopper (sm_90a), rows-section wire (FLAG_STEPTOTS,
-// per-step per-row renorm counts): byte, pair and quad wires.
+// per-step per-row renorm counts): byte, pair, quad, u16 and u16x wires.
 //
 // Replaces finitestateentropy_tpu/turbo/rans_kernels.py:_rans_decode_v2_kernel
-// (rans_decode_v2) and _rans_decode_w_kernel (rans_decode_w) in their byte,
-// pair and quad modes: the two TPU kernels compute the same function and
-// differ only in how they fit the stream into VMEM (resident with an nway
-// interleave, or DMA windows from HBM).  Neither constraint exists here, so
-// both entries launch this kernel.
+// (rans_decode_v2 with [G,T,8] steptots) and the rows mode of
+// _rans_decode_w_kernel (rans_decode_w): the two TPU kernels compute the same
+// function and differ only in how they fit the stream into VMEM (resident
+// with an nway interleave, or DMA windows from HBM).  Neither constraint
+// exists here, so both entries launch this kernel.
 //
-// Per step t = SPC*t4 + p and lane (x is the u32 coder state, M = 2^tlog):
-//   slot = x & (M-1); e = table[slot]
-//   byte (SPC 4):  e = (c << 20) | (f << 8) | sym
-//                  x = f * (x >> tlog) + slot - c;  out byte p = sym
-//   pair (SPC 2),  e = (id << 2*tlog) | (f << tlog) | j,  j = slot - c
-//   quad (SPC 1):  x = f * (x >> tlog) + j;  v = lut[id] (off the x chain)
-//                  pair: out u16 p = v;  quad: the out word = v
+// Per step t = SPC*t4 + p and lane, rans_step.cuh advances the state x by
+// one table lookup and gives the step's value (a byte, a u16 symbol, a pair
+// or a quad LUT value), packed at bit 32/SPC*p of the output word; then
 //   if x < 2^16: x = (x << 16) | stream_hw[cursor[t] - rank]
 // with rank = the shipped row offset of the lane's row + the lane's
 // inclusive rank among the row's flagged lanes.  cursor[t] and the row
@@ -23,41 +19,45 @@
 // talk to each other: each 128-lane row is its own block, grid (G, 8).
 // That spreads a batch over 8x as many SMs as one block per group would.
 //
-// The table lives in shared memory: up to 4096 words at tlog 12, plus the
-// 256-word id LUT on the pair and quad wires (4352 words).  A supercycle's
-// SPC outputs are packed in a register and stored as one coalesced word.
-// Every stream index is clamped into the group's buffer, and an id past
-// the LUT reads 0 (as the TPU kernel's chunk select gives it), so a corrupt
-// frame cannot read out of bounds; it shows as a final state != 2^16
-// (res = x ^ 2^16 != 0), which the wrapper turns into err.
+// The table lives in dynamic shared memory, sized by the launch: 2^tlog
+// words (byte, u16), plus the 256-word id LUT (pair, quad: 4352 words at
+// tlog 12), or twice 2^tlog (u16x: 16384 words, 64 KiB, at tlog 13, past
+// the 48 KiB a launch gets without opting in).  A supercycle's SPC outputs
+// are packed in a register and stored as one coalesced word.  Every stream
+// index is clamped into the group's buffer, so a corrupt frame cannot read
+// out of bounds; it shows as a final state != 2^16 (res = x ^ 2^16 != 0),
+// which the wrapper turns into err.
 //
 // What bounds it: each step's stream read depends on the state the step
 // just computed (a dependent global load per step), plus a 128-thread
 // barrier for the row prefix, so a group's T = SPC*t4_count steps form a
-// latency chain (1024 steps per 1 MiB group on the byte wire, 512 on pair,
-// 256 on quad); bytes moved are about the compressed size plus the output.
+// latency chain (1024 steps per 1 MiB group on the byte wire, 512 on pair
+// and u16, 256 on quad); bytes moved are about the compressed size plus
+// the output.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "rans_step.cuh"
+
 namespace {
 
-constexpr uint32_t kRansL = 1u << 16;
+using namespace rans_step;
+
 constexpr int kRow = 128;
 constexpr int kLanes = 1024;
-constexpr int kLut = 256;
-constexpr int kMaxTable = 4096 + kLut;
-constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kMaxTable = 2 * 8192;   // u16x at tlog 13
 
-template <int SPC>
+template <int MODE>
 __global__ void __launch_bounds__(kRow)
-rans_decode_rows(const int32_t* __restrict__ tables, int table_words,
+rans_decode_rows(const int32_t* __restrict__ tables, int table_words, int aux,
                  const int32_t* __restrict__ init,
                  const uint16_t* __restrict__ stream, int stream_hw,
                  const int32_t* __restrict__ cursors,
                  const int32_t* __restrict__ roff,
                  int32_t* __restrict__ out, int32_t* __restrict__ res,
                  int t4_count, int tlog) {
-  __shared__ uint32_t tbl[kMaxTable];
+  constexpr int SPC = spc<MODE>();
+  extern __shared__ uint32_t tbl[];
   __shared__ int warp_cnt[2][4];
 
   const int g = blockIdx.x;
@@ -68,7 +68,6 @@ rans_decode_rows(const int32_t* __restrict__ tables, int table_words,
   const int T = SPC * t4_count;
   for (int i = col; i < table_words; i += kRow)
     tbl[i] = static_cast<uint32_t>(tables[static_cast<size_t>(g) * table_words + i]);
-  const int lut = table_words - kLut;   // pair / quad: the LUT's first word
 
   const uint16_t* hw = stream + static_cast<size_t>(g) * stream_hw;
   const int32_t* cur = cursors + static_cast<size_t>(g) * T;
@@ -86,20 +85,10 @@ rans_decode_rows(const int32_t* __restrict__ tables, int table_words,
 #pragma unroll
     for (int p = 0; p < SPC; ++p) {
       const int t = SPC * t4 + p;
-      const uint32_t slot = x & mask;
-      const uint32_t e = tbl[slot];
-      if constexpr (SPC == 4) {
-        word |= (e & 0xFFu) << (8 * p);
-        x = ((e >> 8) & 0xFFFu) * (x >> tlog) + slot - (e >> 20);
-      } else {
-        const uint32_t id = e >> (2 * tlog);
-        const uint32_t v = id < kLut ? tbl[lut + id] : 0u;
-        word |= v << (32 / SPC * p);
-        x = ((e >> tlog) & mask) * (x >> tlog) + (e & mask);
-      }
+      word |= advance<MODE>(tbl, aux, x, tlog, mask) << (32 / SPC * p);
       const bool flag = x < kRansL;
       const unsigned b = __ballot_sync(kFull, flag);
-      // warp counts double-buffered by step parity: one barrier per step
+      // warp counts double-buffered, flipped every step: one barrier per step
       if (lane == 0) warp_cnt[buf][w] = __popc(b);
       __syncthreads();
       if (flag) {
@@ -116,34 +105,48 @@ rans_decode_rows(const int32_t* __restrict__ tables, int table_words,
   res[static_cast<size_t>(g) * kLanes + lane_id] = static_cast<int32_t>(x ^ kRansL);
 }
 
+template <int MODE>
+int launch(const void* tables, int table_words, const void* init,
+           const void* stream, int stream_hw, const void* cursors,
+           const void* roff, void* out, void* res, int groups, int t4_count,
+           int tlog, cudaStream_t s) {
+  const int smem = table_words * static_cast<int>(sizeof(uint32_t));
+  cudaError_t e = cudaFuncSetAttribute(
+      rans_decode_rows<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rans_decode_rows<MODE><<<dim3(groups, 8), kRow, smem, s>>>(
+      static_cast<const int32_t*>(tables), table_words,
+      aux_of(MODE, table_words), static_cast<const int32_t*>(init),
+      static_cast<const uint16_t*>(stream), stream_hw,
+      static_cast<const int32_t*>(cursors), static_cast<const int32_t*>(roff),
+      static_cast<int32_t*>(out), static_cast<int32_t*>(res), t4_count, tlog);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// tables: [G, table_words] i32 (spc 4: (cumul<<20)|(freq<<8)|sym, at most
-// 4096 words; spc 2 and 1: (id<<2*tlog)|(freq<<tlog)|(slot-cumul), then the
-// 256-word id LUT, at most 4352 words); init: [G, 1024] i32; stream:
+// tables: [G, table_words] i32 in the layout of `mode` (rans_step.cuh:
+// 0 byte, 1 pair, 2 quad, 3 u16, 4 u16x), at least the words that mode
+// needs at tlog and at most 16384; init: [G, 1024] i32; stream:
 // [G, stream_hw] u16 (the packed payload words viewed as halfwords);
 // cursors: [G, spc*t4_count] i32; roff: [G, spc*t4_count, 8] i32; out:
-// [G, t4_count*1024] i32; res: [G, 1024] i32.  spc: 4 (byte), 2 (pair) or
-// 1 (quad).  Returns the launch's cudaError_t (0 = launched).
+// [G, t4_count*1024] i32; res: [G, 1024] i32.  Returns the launch's
+// cudaError_t (0 = launched).
 extern "C" int rans_decode_launch(const void* tables, int table_words,
                                   const void* init, const void* stream,
                                   int stream_hw, const void* cursors,
                                   const void* roff, void* out, void* res,
-                                  int groups, int t4_count, int tlog, int spc,
+                                  int groups, int t4_count, int tlog, int mode,
                                   void* cuda_stream) {
-  decltype(&rans_decode_rows<4>) kernel = nullptr;
-  if (spc == 4) kernel = rans_decode_rows<4>;
-  if (spc == 2) kernel = rans_decode_rows<2>;
-  if (spc == 1) kernel = rans_decode_rows<1>;
-  const int min_words = spc == 4 ? 1 : kLut + 1;
-  if (kernel == nullptr || table_words < min_words || table_words > kMaxTable ||
-      (spc == 4 && table_words > kMaxTable - kLut))
+  if (mode < kByte || mode > kU16x || tlog < 5 || tlog > 13 ||
+      table_words < table_words_needed(mode, tlog) || table_words > kMaxTable)
     return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<dim3(groups, 8), kRow, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<const int32_t*>(tables), table_words,
-      static_cast<const int32_t*>(init), static_cast<const uint16_t*>(stream),
-      stream_hw, static_cast<const int32_t*>(cursors),
-      static_cast<const int32_t*>(roff), static_cast<int32_t*>(out),
-      static_cast<int32_t*>(res), t4_count, tlog);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(cuda_stream);
+  decltype(&launch<kByte>) run = &launch<kU16x>;
+  if (mode == kByte) run = &launch<kByte>;
+  if (mode == kPair) run = &launch<kPair>;
+  if (mode == kQuad) run = &launch<kQuad>;
+  if (mode == kU16) run = &launch<kU16>;
+  return run(tables, table_words, init, stream, stream_hw, cursors, roff, out,
+             res, groups, t4_count, tlog, s);
 }

@@ -1,10 +1,15 @@
-// TurboRANS encode for Hopper (sm_90a): byte, pair and quad wires.
+// TurboRANS encode for Hopper (sm_90a): byte, pair and quad wires, and the
+// U16 codec's u16 and u16x modes.
 //
-// Replaces finitestateentropy_tpu/turbo/rans_kernels.py:_rans_encode_rl_kernel
+// rans_encode_launch replaces
+// finitestateentropy_tpu/turbo/rans_kernels.py:_rans_encode_rl_kernel
 // (rans_encode2(..., rowloc=True)) in its three modes, and computes the same
-// wire as _rans_encode2_kernel.  The output bytes equal the numpy twins
-// turbo/rans.py:rans_compress, turbo/pair.py:pair_compress and
-// turbo/quad.py:quad_compress.
+// wire as _rans_encode2_kernel: two halfwords per output word.
+// rans_encode16_launch replaces _rans_encode_kernel (rans_encode, :303-459)
+// in its u16 modes: one halfword per output i32, as that kernel lays it out.
+// The output bytes equal the numpy twins turbo/rans.py:rans_compress,
+// turbo/pair.py:pair_compress, turbo/quad.py:quad_compress and
+// turbo/rans16.py:rans16_compress.
 //
 // One block of 1024 threads per group; thread k is lane k (row k>>7, column
 // k&127), so row r is warps 4r..4r+3.  Steps run in reverse, as rANS
@@ -12,10 +17,13 @@
 // p from SPC-1 down to 0.  SPC (steps per source word) is the mode:
 //   4  byte wire: symbol p is byte p of the word;
 //   2  pair wire: symbol p is the u16 pair id (word >> 16p) & 0xFFFF;
-//   1  quad wire: the word holds one quad id, word & 0xFF.
-// Pair and quad ids are < 256, so all three modes share the 256-entry tables
-// (an id past them, which only a malformed pair source holds, reads zero
-// entries as the TPU kernel's chunk select gives them).
+//   1  quad wire: the word holds one quad id, word & 0xFF;
+//   2  u16 modes: symbol p is (word >> 16p) & 0xFFFF, with 1024-entry
+//      tables (12-bit fields, symbols <= 1023) or 4096-entry tables
+//      ((cumul << 14) | freq, symbols <= 4095 at tableLog 12-13).
+// Pair and quad ids are < 256, so those modes share the 256-entry tables.
+// A symbol past the tables (only a malformed source holds one) reads zero
+// entries, as the TPU kernel's chunk select gives them.
 // Per step each lane
 //   - emits its low halfword and shifts x right by 16 when x >= f << (32-tlog),
 //   - divides by f with a mulhi by the magic reciprocal and two corrections,
@@ -42,7 +50,6 @@ namespace {
 
 constexpr uint32_t kRansL = 1u << 16;
 constexpr int kLanes = 1024;
-constexpr int kSyms = 256;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 template <int SPC>
@@ -52,16 +59,18 @@ __device__ __forceinline__ uint32_t symbol_of(uint32_t word, int p) {
   return word & 0xFFu;
 }
 
-template <int SPC>
+// SYMS: table entries (256, 1024 or 4096); OutT: the stream's element,
+// uint16_t for the packed wire, int32_t for one halfword per i32.
+template <int SPC, int SYMS, typename OutT>
 __global__ void __launch_bounds__(kLanes)
 rans_encode_lanes(const int32_t* __restrict__ fc_tables,
                   const int32_t* __restrict__ magic_tables,
                   const int32_t* __restrict__ src,
-                  uint16_t* __restrict__ stream, int stream_hw,
+                  OutT* __restrict__ stream, int stream_hw,
                   int32_t* __restrict__ finals, int32_t* __restrict__ csize,
                   int32_t* __restrict__ stots, int t4_count, int tlog) {
-  __shared__ uint32_t fc[kSyms];
-  __shared__ uint32_t mg[kSyms];
+  __shared__ uint32_t fc[SYMS];
+  __shared__ uint32_t mg[SYMS];
   __shared__ int warp_cnt[2][32];
 
   const int g = blockIdx.x;
@@ -69,14 +78,14 @@ rans_encode_lanes(const int32_t* __restrict__ fc_tables,
   const int lane = k & 31;
   const int w = k >> 5;
   const int row = k >> 7;
-  if (k < kSyms) {
-    fc[k] = static_cast<uint32_t>(fc_tables[g * kSyms + k]);
-    mg[k] = static_cast<uint32_t>(magic_tables[g * kSyms + k]);
+  for (int i = k; i < SYMS; i += kLanes) {
+    fc[i] = static_cast<uint32_t>(fc_tables[static_cast<size_t>(g) * SYMS + i]);
+    mg[i] = static_cast<uint32_t>(magic_tables[static_cast<size_t>(g) * SYMS + i]);
   }
   __syncthreads();
 
   const int32_t* s = src + static_cast<size_t>(g) * t4_count * kLanes + k;
-  uint16_t* hw = stream + static_cast<size_t>(g) * stream_hw;
+  OutT* hw = stream + static_cast<size_t>(g) * stream_hw;
   int32_t* st = stots + static_cast<size_t>(g) * t4_count * SPC * 8;
   const unsigned le_mask = 0xFFFFFFFFu >> (31 - lane);   // lanes <= lane
   const int shift = 32 - tlog;
@@ -89,11 +98,12 @@ rans_encode_lanes(const int32_t* __restrict__ fc_tables,
 #pragma unroll
     for (int p = SPC - 1; p >= 0; --p) {
       const uint32_t sym = symbol_of<SPC>(word, p);
-      const bool known = SPC != 2 || sym < kSyms;
+      const bool known = sym < static_cast<uint32_t>(SYMS);
       const uint32_t e = known ? fc[sym] : 0u;
       const uint32_t m = known ? mg[sym] : 0u;
-      const uint32_t f = e & 0xFFFu;
-      const uint32_t cu = (e >> 12) & 0xFFFu;
+      // 4096-entry tables hold 14-bit fields (tableLog up to 13)
+      const uint32_t f = SYMS == 4096 ? e & 0x3FFFu : e & 0xFFFu;
+      const uint32_t cu = SYMS == 4096 ? e >> 14 : (e >> 12) & 0xFFFu;
       const bool flag = x >= (f << shift);
       const uint32_t emit = x & 0xFFFFu;
       if (flag) x >>= 16;
@@ -121,7 +131,7 @@ rans_encode_lanes(const int32_t* __restrict__ fc_tables,
       if (flag) {
         const int rank = (w ? before : 0) + __popc(b & le_mask);
         const int pos = cursor + total - rank;
-        if (pos < stream_hw) hw[pos] = static_cast<uint16_t>(emit);
+        if (pos < stream_hw) hw[pos] = static_cast<OutT>(emit);
       }
       if ((k & 127) == 0) st[(SPC * t4 + p) * 8 + row] = row_hi - (row ? row_lo : 0);
       cursor += total;
@@ -130,6 +140,20 @@ rans_encode_lanes(const int32_t* __restrict__ fc_tables,
   }
   finals[static_cast<size_t>(g) * kLanes + k] = static_cast<int32_t>(x);
   if (k == 0) csize[g] = cursor;
+}
+
+template <int SPC, int SYMS, typename OutT>
+int launch(const void* fc, const void* magic, const void* src, void* stream,
+           int stream_hw, void* finals, void* csize, void* stots, int groups,
+           int t4_count, int tlog, void* cuda_stream) {
+  rans_encode_lanes<SPC, SYMS, OutT>
+      <<<groups, kLanes, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
+          static_cast<const int32_t*>(fc), static_cast<const int32_t*>(magic),
+          static_cast<const int32_t*>(src), static_cast<OutT*>(stream),
+          stream_hw, static_cast<int32_t*>(finals),
+          static_cast<int32_t*>(csize), static_cast<int32_t*>(stots),
+          t4_count, tlog);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -144,15 +168,31 @@ extern "C" int rans_encode_launch(const void* fc, const void* magic,
                                   void* finals, void* csize, void* stots,
                                   int groups, int t4_count, int tlog, int spc,
                                   void* cuda_stream) {
-  decltype(&rans_encode_lanes<4>) kernel = nullptr;
-  if (spc == 4) kernel = rans_encode_lanes<4>;
-  if (spc == 2) kernel = rans_encode_lanes<2>;
-  if (spc == 1) kernel = rans_encode_lanes<1>;
-  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<groups, kLanes, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<const int32_t*>(fc), static_cast<const int32_t*>(magic),
-      static_cast<const int32_t*>(src), static_cast<uint16_t*>(stream),
-      stream_hw, static_cast<int32_t*>(finals), static_cast<int32_t*>(csize),
-      static_cast<int32_t*>(stots), t4_count, tlog);
-  return static_cast<int>(cudaGetLastError());
+  decltype(&launch<4, 256, uint16_t>) run = nullptr;
+  if (spc == 4) run = &launch<4, 256, uint16_t>;
+  if (spc == 2) run = &launch<2, 256, uint16_t>;
+  if (spc == 1) run = &launch<1, 256, uint16_t>;
+  if (run == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return run(fc, magic, src, stream, stream_hw, finals, csize, stots, groups,
+             t4_count, tlog, cuda_stream);
+}
+
+// The U16 codec's encode.  fc, magic: [G, nch*128] i32, nch 8 (symbols <=
+// 1023, (cumul << 12) | freq) or 32 (symbols <= 4095, (cumul << 14) |
+// freq); src: [G, t2_count*1024] i32 (2 u16 symbols per word); stream:
+// [G, stream_entries] i32, one halfword per entry, zeroed by the caller;
+// finals: [G, 1024] i32; csize: [G] i32; stots: [G, 2*t2_count, 8] i32.
+// Returns the launch's cudaError_t (0 = launched).
+extern "C" int rans_encode16_launch(const void* fc, const void* magic,
+                                    const void* src, void* stream,
+                                    int stream_entries, void* finals,
+                                    void* csize, void* stots, int groups,
+                                    int t2_count, int tlog, int nch,
+                                    void* cuda_stream) {
+  decltype(&launch<2, 1024, int32_t>) run = nullptr;
+  if (nch == 8) run = &launch<2, 1024, int32_t>;
+  if (nch == 32) run = &launch<2, 4096, int32_t>;
+  if (run == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return run(fc, magic, src, stream, stream_entries, finals, csize, stots,
+             groups, t2_count, tlog, cuda_stream);
 }

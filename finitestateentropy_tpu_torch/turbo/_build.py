@@ -4,8 +4,9 @@ Each source in ``csrc/`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes``.  Nothing is built at
 import: the first wrapper call on a CUDA tensor builds what is missing, all
 sources at once (one ``nvcc`` process per source, started together).  A
-library's file name carries a hash of its source and flags, so an edited
-source is never served a stale build.  The builds land in
+library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is never served a
+stale build.  The builds land in
 ``build/torch_kernels/`` at the root of the checkout.
 """
 from __future__ import annotations
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # chain_probe is a latency microbenchmark (chip_smoke.py), not a codec kernel
-SOURCES = ("rans_encode", "rans_decode", "chain_probe")
+SOURCES = ("rans_encode", "rans_decode", "rans_decode_flat", "chain_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,7 +39,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -1,13 +1,16 @@
 """TurboRANS entry points on the GPU: whole-buffer compress / decompress.
 
-The port of the JAX package's turbo/api.py for the speed-mode wires:
-byte, pair (turbo/pair.py) and quad (turbo/quad.py), and the auto pick
-between them that the default flags make per group.  Host side does
-per-group stats and table packing (histogram, normalization, NCount, the
-pair / quad alphabets: O(group) numpy); the coder chains run in the CUDA
-kernels behind rans_kernels.py.  Groups of one wire, padded size and
-tableLog batch into one launch.  Frames are byte-identical to the JAX
-package's for the same flags.
+The port of the JAX package's turbo/api.py: the speed-mode wires byte,
+pair (turbo/pair.py) and quad (turbo/quad.py) with the auto pick between
+them that the default flags make per group; ratio mode (v1 frames, no
+section: steptots=False); the totals wire (FLAG_TOTALS: totals_only=True);
+and the TurboRANS-U16 codec for 16-bit symbol alphabets
+(turbo16_compress_device / turbo16_decompress_device, turbo/rans16.py).
+Host side does per-group stats and table packing (histogram,
+normalization, NCount, the pair / quad alphabets: O(group) numpy); the
+coder chains run in the CUDA kernels behind rans_kernels.py.  Groups of
+one wire, padded size and tableLog batch into one launch.  Frames are
+byte-identical to the JAX package's for the same flags.
 """
 from __future__ import annotations
 
@@ -27,14 +30,19 @@ from .format import TURBO_LANES, _pad_n
 from .pair import apply_escapes, predicted_bits, prep_pair_group
 from .quad import _pad_q, prep_quad_group
 from .rans import (FLAG_QUAD, FLAG_RAW, FLAG_RLE, FLAG_ROWS4, FLAG_STEPTOTS,
-                   RANS_MAGIC, RANS_SPEED_TABLELOG, RANS_TABLELOG, _HDR,
-                   _pack_rows4, parse_rans_group)
-from .rans16 import _pad_n16
-from .rans_kernels import SPC, rans_decode_v2, rans_decode_w, rans_encode2
+                   FLAG_TOTALS, RANS_MAGIC, RANS_SPEED_TABLELOG,
+                   RANS_TABLELOG, _HDR, _pack_rows4, parse_rans_group)
+from .rans16 import (FLAG_STEPTOTS as FL16_STEPTOTS, RANS16_MAGIC,
+                     RANS16_MAX_SYMBOL, RANS16_STEP_SYMS, _HDR as HDR16,
+                     _pad_n16, parse_rans16_group, rans16_compress)
+from .rans_kernels import (SPC, rans_decode, rans_decode_v2, rans_decode_w,
+                           rans_encode, rans_encode2)
 from .state import resolve_device, to_tensors
-from .tables import (pack_pair_dtable, pack_quad_dtable, pack_rans_ctables,
+from .tables import (pack_pair_dtable, pack_quad_dtable, pack_rans16_ctables,
+                     pack_rans16_dtable, pack_rans16x_ctables,
+                     pack_rans16x_dtable, pack_rans_ctables,
                      pack_rans_dtable, pack_stream_words, stream_word_rows,
-                     v2_pick_nway)
+                     tch_of, v2_pick_nway)
 
 DEFAULT_GROUP = 1 << 20
 MAX_GROUP = 4 << 20   # the JAX encoder's VMEM bound; kept: it shapes frames
@@ -103,16 +111,6 @@ def _map(fn, items) -> list:
         with ThreadPoolExecutor(max_workers=workers) as ex:
             return list(ex.map(fn, items))
     return [fn(it) for it in items]
-
-
-def _check_modes(steptots: bool, totals_only: bool, mesh: int) -> None:
-    if not steptots or totals_only:
-        raise NotImplementedError(
-            "ratio mode (steptots=False) and the totals wire arrive with "
-            "ROADMAP.md queue A item 5")
-    if mesh > 1:
-        raise NotImplementedError(
-            "multi-device compress arrives with ROADMAP.md queue A item 9")
 
 
 def _wire_ests(ch: np.ndarray, prep_byte, tlog_byte: int, pp, qp):
@@ -278,18 +276,27 @@ def plan_encode(data: bytes, group_size: int, table_log: int, pair: int = -1,
 
 def _encode_frame(ch, tlog: int, flags: int, nc_len: int, head: bytes,
                   csize: int, words: np.ndarray, fin: np.ndarray,
-                  stots: np.ndarray) -> bytes:
+                  stots: np.ndarray, sect_kind: str | None) -> bytes:
     """One group's frame from the encode kernel's outputs: head is what
     lies between the header and the init states (the padded NCount; pair
-    and quad add their LUT and escapes).  Raw when the frame would not be
-    smaller than the group."""
+    and quad add their LUT and escapes); sect_kind the section after the
+    init states: "rows" (FLAG_STEPTOTS, ROWS4-packed when smaller),
+    "totals" (FLAG_TOTALS) or None (ratio mode, v1).  Raw when the frame
+    would not be smaller than the group."""
     # wire payload bytes ARE the packed words little-endian
     payload = words.tobytes()[: 2 * csize]
-    packed = _pack_rows4(stots)
-    if packed is not None:
-        sect, fl = packed, flags | FLAG_STEPTOTS | FLAG_ROWS4
+    if sect_kind == "rows":
+        packed = _pack_rows4(stots)
+        if packed is not None:
+            sect, fl = packed, flags | FLAG_STEPTOTS | FLAG_ROWS4
+        else:
+            sect, fl = stots.reshape(-1).tobytes(), flags | FLAG_STEPTOTS
+    elif sect_kind == "totals":
+        # 1 u16 per step (T % 4 == 0 keeps 4 B alignment)
+        sect = stots.astype(np.uint16).sum(axis=1).astype("<u2").tobytes()
+        fl = flags | FLAG_TOTALS
     else:
-        sect, fl = stots.reshape(-1).tobytes(), flags | FLAG_STEPTOTS
+        sect, fl = b"", flags
     blob = (_HDR.pack(RANS_MAGIC, len(ch), csize, tlog, fl, nc_len)
             + head
             + fin.reshape(-1).view(np.uint32).astype("<u4").tobytes()
@@ -308,6 +315,23 @@ def _frame_head(wire: str, prep) -> tuple[int, int, bytes]:
     return prep["flags"], prep["nc_len"], prep["sections"]
 
 
+def mode_flags(table_log: int, steptots: bool, totals_only: bool,
+               pair: int, quad: int) -> tuple[int, int, int]:
+    """(table_log, pair, quad) as turbo_compress_device applies its flag
+    rules (JAX api.py:178-188): table_log 0 is the mode default (10 speed,
+    11 ratio); the totals wire has no multi-byte variants; ratio mode has
+    no quad wire and drops the auto pair pick (an explicit pair=1 stays)."""
+    if table_log == 0:
+        table_log = RANS_SPEED_TABLELOG if steptots else RANS_TABLELOG
+    if totals_only:
+        pair = quad = 0
+    if not steptots:
+        quad = 0
+        if pair == -1:
+            pair = 0
+    return table_log, pair, quad
+
+
 def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
                           table_log: int = 0,
                           steptots: bool = True, mesh: int = 0,
@@ -317,23 +341,30 @@ def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
                           quad: int = -1,
                           quad_table_log: int = 0,
                           device=None) -> bytes:
-    """Compress with the TurboRANS encode kernel (speed mode).
+    """Compress with the TurboRANS encode kernel.
 
     Frames equal the JAX package's turbo_compress_device with the same
-    flags.  pair / quad select the multi-byte wires (turbo/pair.py order-1
-    — 2 bytes per decode step; turbo/quad.py order-3 — 4 bytes per step):
-    -1 (default) auto-picks per group the FASTEST wire whose predicted size
-    is within PAIR_RATIO_GIVE of the best candidate; 0 disables; 1 forces
-    when eligible (quad beats pair when both are forced).  pair_table_log /
-    quad_table_log = 0 pick the wire defaults; table_log=0 = the byte
-    wire's speed-mode default (10).  Ratio mode (steptots=False), the
-    totals wire and mesh > 1 raise NotImplementedError (not ported yet).
-    device: torch device for the kernels; None = cuda (raises without
-    one), "cpu" runs the plain PyTorch versions."""
-    _check_modes(steptots, totals_only, mesh)
+    flags.  steptots=True (speed mode) ships per-step renorm counts for the
+    rows-wire decode; False is ratio mode (v1 frames, no section).
+    totals_only=True ships one u16 total per step instead (FLAG_TOTALS).
+    table_log=0 = the mode default (10 speed / 11 ratio).  pair / quad
+    select the multi-byte wires (turbo/pair.py order-1 — 2 bytes per
+    decode step; turbo/quad.py order-3 — 4 bytes per step): -1 (default)
+    auto-picks per group the FASTEST wire whose predicted size is within
+    PAIR_RATIO_GIVE of the best candidate; 0 disables; 1 forces when
+    eligible (quad beats pair when both are forced).  The totals wire has
+    no multi-byte variants and quad is speed-mode only, so totals_only
+    turns both off and ratio mode turns quad and the auto pair off (an
+    explicit pair=1 is kept).  pair_table_log / quad_table_log = 0 pick
+    the wire defaults.  mesh > 1 raises NotImplementedError (not ported
+    yet).  device: torch device for the kernels; None = cuda (raises
+    without one), "cpu" runs the plain PyTorch versions."""
+    if mesh > 1:
+        raise NotImplementedError(
+            "multi-device compress arrives with ROADMAP.md queue A item 9")
     dev = resolve_device(device)
-    if table_log == 0:
-        table_log = RANS_SPEED_TABLELOG
+    table_log, pair, quad = mode_flags(table_log, steptots, totals_only,
+                                       pair, quad)
     if not 5 <= table_log <= 12:
         # the byte-path table packings use 12-bit freq/cumul fields
         raise ValueError(f"byte-path tableLog must be in [5, 12], got {table_log}")
@@ -351,6 +382,7 @@ def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
         n_groups, results, batches = plan_encode(
             data, group_size, table_log, pair, quad, pair_table_log,
             quad_table_log)
+    sect_kind = ("totals" if totals_only else "rows") if steptots else None
 
     for (wire, n_pad, tlog), items in batches.items():
         G = len(items)
@@ -376,12 +408,13 @@ def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
             for j, (gi, ch, prep) in enumerate(items):
                 results[gi] = _encode_frame(ch, tlog, *_frame_head(wire, prep),
                                             int(csize[j]), stream[j], fin[j],
-                                            stots[j])
+                                            stots[j], sect_kind)
     return b"".join(results[gi] for gi in range(n_groups))
 
 
 def _window_dispatch(windows: int, t_count: int, hrows: int, tlog: int,
-                     G: int, pair: bool = False,
+                     G: int, totals_only: bool, u16: bool = False,
+                     u16x: bool = False, pair: bool = False,
                      quad: bool = False) -> tuple[int, int]:
     """Entry choice for a speed-wire decode batch, as the JAX package's
     (api.py:494-547) makes it, so a batch reaches the same entry there and
@@ -390,9 +423,10 @@ def _window_dispatch(windows: int, t_count: int, hrows: int, tlog: int,
     windows > 1 forces rans_decode_w at that interleave (when the shape is
     eligible); windows == 1 forces rans_decode_v2; windows == 0 picks by
     the JAX package's TPU cost model: pair and quad batches go windowed
-    whenever t_count is a multiple of 128//spc; byte batches iff
-    7*G >= nv*pad8(G), nv the resident decoder's interleave."""
-    spc = 1 if quad else 2 if pair else 4
+    whenever t_count is a multiple of 128//spc; byte and totals batches iff
+    7*G >= nv*pad8(G), U16 batches iff 4.5*G >= nv*pad8(G), nv the
+    resident decoder's interleave (v2_pick_nway)."""
+    spc = 1 if quad else 2 if u16 else 4
     smin = 128 // spc
     if t_count % smin:
         return 0, 0          # group too small / misaligned for windows
@@ -404,8 +438,9 @@ def _window_dispatch(windows: int, t_count: int, hrows: int, tlog: int,
         return windows, S
     if pair or quad:
         return 8, S
-    nv = v2_pick_nway(t_count, hrows, tlog)
-    if 7 * G >= nv * ((G + 7) // 8 * 8):
+    nv = v2_pick_nway(t_count, hrows, tlog, u16, totals_only, u16x, pair)
+    v2_width = 4.5 if u16 else 7
+    if v2_width * G >= nv * ((G + 7) // 8 * 8):
         return 8, S
     return 0, 0
 
@@ -416,21 +451,22 @@ _DTABLE = {"byte": lambda g, tlog: pack_rans_dtable(g[4], tlog),
 
 
 def stage_decode_batch(groups, idxs, n_pad: int, tlog: int,
-                       wire: str = "byte"):
+                       wire: str = "byte", kind: int = 2):
     """numpy inputs of the decode entries for a batch of parsed groups of
-    one wire, padded size (in the wire's symbols) and tableLog: (csize_hw,
-    tables, init_states, streams, steptots, t4, hrows)."""
+    one wire, padded size (in the wire's symbols), tableLog and section
+    kind (plan_decode): (csize_hw, tables, init_states, streams, steptots,
+    t4, hrows), steptots [G,T,8] (kind 2), [G,T] (kind 1) or None (v1)."""
     G = len(idxs)
     t4 = _wire_t4(wire, n_pad)
     hrows = _round8(max((groups[i][1] + 127) // 128 for i in idxs) + 16)
-    tch = max((1 << tlog) // 128, 1) + (0 if wire == "byte" else 2)
     T = n_pad // TURBO_LANES
     srows = stream_word_rows(hrows)
-    tbl = np.zeros((G, tch, 128), np.int32)
+    tbl = np.zeros((G, tch_of(wire, tlog), 128), np.int32)
     init = np.zeros((G, 8, 128), np.int32)
     hws = np.zeros((G, srows, 128), np.int32)
     cs = np.zeros(G, np.int32)
-    tots = np.zeros((G, T, 8), np.int32)
+    tots = (None if kind == 0 else
+            np.zeros((G, T) if kind == 1 else (G, T, 8), np.int32))
 
     def fill(j_i):
         # the wire payload is already the packed word layout — staging is
@@ -441,7 +477,8 @@ def stage_decode_batch(groups, idxs, n_pad: int, tlog: int,
         init[j] = g[6].view(np.int32).reshape(8, 128)
         hws[j] = pack_stream_words(g[7], srows)
         cs[j] = g[1]
-        tots[j] = g[8]
+        if kind:
+            tots[j] = g[8]
 
     _map(fill, list(enumerate(idxs)))
     return cs, tbl, init, hws, tots, t4, hrows
@@ -458,25 +495,23 @@ def parse_groups(blob: bytes) -> list:
 
 
 def plan_decode(groups):
-    """({i: bytes} of the raw and RLE groups, {(wire, n_pad, tlog): [i]}:
-    the decode entries' batches).  Raises NotImplementedError on groups of
-    a wire this port does not have yet (v1 ratio mode, FLAG_TOTALS)."""
+    """({i: bytes} of the raw and RLE groups, {(wire, n_pad, tlog, kind):
+    [i]}: the decode entries' batches).  kind is the section: 0 none (v1,
+    ratio mode), 1 FLAG_TOTALS step totals, 2 FLAG_STEPTOTS row counts."""
     pieces: dict[int, bytes] = {}
-    batches: dict[tuple[str, int, int], list[int]] = {}
+    batches: dict[tuple[str, int, int, int], list[int]] = {}
     for i, g in enumerate(groups):
         n, tlog, flags, payload, steptots = g[0], g[2], g[3], g[7], g[8]
         if flags & FLAG_RAW:
             pieces[i] = bytes(payload)
         elif flags & FLAG_RLE:
             pieces[i] = bytes([payload[0]]) * n
-        elif steptots is None or steptots.ndim != 2:
-            raise NotImplementedError(
-                "v1 (ratio mode) and FLAG_TOTALS groups arrive with "
-                "ROADMAP.md queue A item 5")
         else:
             wire = ("byte" if len(g) == 9
                     else "quad" if flags & FLAG_QUAD else "pair")
-            batches.setdefault((wire, _wire_pad(wire, n), tlog), []).append(i)
+            kind = 0 if steptots is None else steptots.ndim
+            batches.setdefault((wire, _wire_pad(wire, n), tlog, kind),
+                               []).append(i)
     return pieces, batches
 
 
@@ -493,13 +528,14 @@ def _group_bytes(wire: str, g, words: np.ndarray) -> bytes:
 
 def turbo_decompress_device(blob: bytes, mesh: int = 0, windows: int = 0,
                             device=None) -> bytes:
-    """Decompress a TurboRANS stream with the decode kernel.
+    """Decompress a TurboRANS stream with the decode kernels.
 
-    Decodes byte, pair and quad speed-mode groups.  windows picks the
-    decode entry as the JAX package does (see _window_dispatch); both
-    entries run the same CUDA kernel.  Raises ValueError on a corrupt group
-    and NotImplementedError on groups of a wire the port does not have yet
-    (totals, v1 ratio mode).  device: as turbo_compress_device."""
+    Decodes every wire the compressor writes: byte, pair and quad
+    speed-mode groups and totals groups through rans_decode_v2 or
+    rans_decode_w (windows picks the entry as the JAX package does, see
+    _window_dispatch; both entries run the same CUDA kernel for a wire),
+    and v1 groups (ratio mode, byte or pair) through rans_decode.  Raises
+    ValueError on a corrupt group.  device: as turbo_compress_device."""
     if mesh > 1:
         raise NotImplementedError(
             "multi-device decompress arrives with ROADMAP.md queue A item 9")
@@ -508,29 +544,38 @@ def turbo_decompress_device(blob: bytes, mesh: int = 0, windows: int = 0,
         groups = parse_groups(blob)
         pieces, batches = plan_decode(groups)
 
-    for (wire, n_pad, tlog), idxs in batches.items():
+    for (wire, n_pad, tlog, kind), idxs in batches.items():
         G = len(idxs)
-        debuglog(3, "turbo decode: %s batch of %d groups, n_pad=%d, tlog=%d",
-                 wire, G, n_pad, tlog)
+        debuglog(3, "turbo decode: %s batch of %d groups, n_pad=%d, tlog=%d, "
+                 "sect_kind=%d", wire, G, n_pad, tlog, kind)
         with _stage("d_stage", dev):
             cs, tbl, init, hws, tots, t4, hrows = stage_decode_batch(
-                groups, idxs, n_pad, tlog, wire)
+                groups, idxs, n_pad, tlog, wire, kind)
         with _stage("d_h2d", dev):
             ins = to_tensors(dev, csize_hw=cs, tables=tbl, init_states=init,
-                             streams=hws, steptots=tots)
+                             streams=hws)
+            if kind:
+                steptots = to_tensors(dev, steptots=tots)["steptots"]
         args = (ins["csize_hw"], ins["tables"], ins["init_states"],
-                ins["streams"], ins["steptots"], t4, hrows)
-        modes = dict(u16=wire == "pair", pair=wire == "pair",
-                     quad=wire == "quad")
+                ins["streams"])
+        is_pair = wire == "pair"
         with _stage("d_kernel", dev):
-            w_nway, w_s = _window_dispatch(windows, t4, hrows, tlog, G,
-                                           modes["pair"], modes["quad"])
-            if w_nway:
-                debuglog(2, "turbo decode: rans_decode_w entry (windows=%d, "
-                            "t4=%d, G=%d, wire=%s)", windows, t4, G, wire)
-                outw, err = rans_decode_w(*args, w_nway, tlog, w_s, **modes)
+            if kind == 0:       # v1: rank and cursor chain in the kernel
+                outw, err = rans_decode(*args, t4, hrows, is_pair, tlog,
+                                        False, is_pair)
             else:
-                outw, err = rans_decode_v2(*args, tlog, **modes)
+                modes = dict(u16=is_pair, pair=is_pair, quad=wire == "quad")
+                w_nway, w_s = _window_dispatch(windows, t4, hrows, tlog, G,
+                                               kind == 1, **modes)
+                if w_nway:
+                    debuglog(2, "turbo decode: rans_decode_w entry "
+                                "(windows=%d, t4=%d, G=%d, wire=%s)",
+                             windows, t4, G, wire)
+                    outw, err = rans_decode_w(*args, steptots, t4, hrows,
+                                              w_nway, tlog, w_s, **modes)
+                else:
+                    outw, err = rans_decode_v2(*args, steptots, t4, hrows,
+                                               tlog, **modes)
         with _stage("d_d2h", dev):
             err = err.cpu().numpy()
             if err.any():
@@ -542,3 +587,217 @@ def turbo_decompress_device(blob: bytes, mesh: int = 0, windows: int = 0,
                 pieces[i] = _group_bytes(wire, groups[i], outw[j])
     with _stage("d_join", dev):
         return b"".join(pieces[i] for i in range(len(groups)))
+
+
+# ---------------------------------------------------------------------------
+# TurboRANS-U16 (fseU16-class workloads: 16-bit symbols <= 4095)
+# ---------------------------------------------------------------------------
+
+
+def _prep16_group(chunk: np.ndarray):
+    """Host stats for one U16 group: (norm, ncount, mfs, tlog), or None for
+    a group the numpy twin writes (empty, RLE, or a symbol above 4095,
+    which the twin refuses).  Alphabets above 1023 need tableLog 12-13
+    (fseU16.c:43-48); small groups shrink via FSE_optimalTableLog."""
+    n = len(chunk)
+    if n == 0 or int(chunk.max()) > RANS16_MAX_SYMBOL:
+        return None
+    count = np.bincount(chunk, minlength=4096)
+    if int(count.max()) == n:
+        return None
+    max_sv = int(chunk.max())
+    tlog_req = (RANS_TABLELOG if max_sv <= 1023
+                else 12 if max_sv <= 2047 else 13)
+    tlog_opt = min(tlog_req, fse_optimal_table_log(tlog_req, n, max_sv,
+                                                   max_allowed=13))
+    norm, tlog = fse_normalize_count(tlog_opt, count[: max_sv + 1], n, max_sv,
+                                     max_table_log=13)
+    ncount = fse_write_ncount(norm, max_sv, tlog)
+    return np.asarray(norm), ncount, int(count.argmax()), tlog
+
+
+def plan_encode16(symbols: np.ndarray, group_syms: int, steptots: bool):
+    """Cut a u16 symbol array into groups and prep each: returns (group
+    count, {gi: frame} of the groups the numpy twin writes, {(n_pad, big,
+    tlog): [(gi, chunk, prep)]}: rans_encode's batches; big = symbols above
+    1023, the wide tables)."""
+    chunks = [symbols[i : i + group_syms]
+              for i in range(0, max(len(symbols), 1), group_syms)]
+    preps = _map(_prep16_group, chunks)
+    frames: dict[int, bytes] = {}
+    batches: dict[tuple[int, bool, int], list] = {}
+    for gi, (chunk, prep) in enumerate(zip(chunks, preps)):
+        if prep is None:
+            frames[gi] = rans16_compress(chunk, steptots)
+            continue
+        big = int(chunk.max()) > 1023
+        batches.setdefault((_pad_n16(len(chunk)), big, prep[3]), []).append(
+            (gi, chunk, prep))
+    return len(chunks), frames, batches
+
+
+def stage_encode16_batch(items, n_pad: int, big: bool):
+    """(fc, magic, src_words) numpy inputs of rans_encode for a batch of
+    (gi, chunk, _prep16_group(chunk)) items: 8-chunk tables, or 32-chunk
+    ones when big.  Each group pads with its most frequent symbol."""
+    G = len(items)
+    t2 = n_pad // RANS16_STEP_SYMS
+    nch = 32 if big else 8
+    fc = np.zeros((G, nch, 128), np.int32)
+    mg = np.zeros((G, nch, 128), np.int32)
+    srcw = np.zeros((G, t2 * 8, 128), np.int32)
+
+    def stage(j):
+        _gi, chunk, (norm, _ncount, mfs, _tlog) = items[j]
+        fc[j], mg[j] = (pack_rans16x_ctables if big else pack_rans16_ctables)(norm)
+        pad = np.full(n_pad, mfs, np.uint16)
+        pad[: len(chunk)] = chunk
+        srcw[j] = pad.view("<u4").view(np.int32).reshape(t2 * 8, 128)
+
+    _map(stage, range(G))
+    return fc, mg, srcw
+
+
+def turbo16_compress_device(symbols: np.ndarray, group_syms: int = 1 << 19,
+                            steptots: bool = True, device=None) -> bytes:
+    """Compress a u16 symbol array (symbols <= 4095) with the TurboRANS-U16
+    encode kernel.
+
+    Frames equal the JAX package's turbo16_compress_device and the numpy
+    twin rans16_compress.  steptots=True (speed mode) ships per-step
+    renorm counts for the rows-wire decode; False is ratio mode (v1
+    frames).  device: as turbo_compress_device."""
+    dev = resolve_device(device)
+    symbols = np.ascontiguousarray(symbols, dtype=np.uint16)
+    n_groups, results, batches = plan_encode16(symbols, group_syms, steptots)
+    for (n_pad, big, tlog), items in batches.items():
+        G = len(items)
+        debuglog(3, "turbo16 encode: batch of %d groups, n_pad=%d, big=%s",
+                 G, n_pad, big)
+        fc, mg, srcw = stage_encode16_batch(items, n_pad, big)
+        ins = to_tensors(dev, fc_tables=fc, magic_tables=mg, src_words=srcw)
+        stream, fin, csize, stots = rans_encode(
+            ins["fc_tables"], ins["magic_tables"], ins["src_words"],
+            n_pad // RANS16_STEP_SYMS, _round8(n_pad // 128 + 16), True, tlog,
+            steptots)
+        csize = csize.cpu().numpy()
+        # one halfword per entry: copy only the entries used
+        stream = stream.reshape(G, -1)[:, : int(csize.max())].cpu().numpy()
+        fin = fin.cpu().numpy()
+        if steptots:
+            stots = stots.cpu().numpy().astype(np.uint8)
+        for j, (gi, chunk, (_norm, ncount, _mfs, _tl)) in enumerate(items):
+            n = len(chunk)
+            cs = int(csize[j])
+            sect, fl = ((stots[j].reshape(-1).tobytes(), FL16_STEPTOTS)
+                        if steptots else (b"", 0))
+            blob = (HDR16.pack(RANS16_MAGIC, n, cs, tlog, fl, len(ncount))
+                    + ncount + b"\0" * (-len(ncount) % 4)
+                    + fin[j].reshape(-1).view(np.uint32).astype("<u4").tobytes()
+                    + sect
+                    + stream[j, :cs].astype("<u2").tobytes())
+            if len(blob) >= 2 * n + HDR16.size:
+                blob = HDR16.pack(RANS16_MAGIC, n, 0, 0, 1, 0) + chunk.tobytes()
+            results[gi] = blob
+    return b"".join(results[gi] for gi in range(n_groups))
+
+
+def parse_groups16(blob: bytes) -> list:
+    """Every group of a TurboRANS-U16 stream, parsed (parse_rans16_group)."""
+    groups, pos = [], 0
+    while pos < len(blob):
+        g, used = parse_rans16_group(blob[pos:])
+        groups.append(g)
+        pos += used
+    return groups
+
+
+def plan_decode16(groups):
+    """({i: u16 array} of the raw and RLE groups, {(n_pad, tlog, have_tots,
+    big): [i]}: the decode entries' batches)."""
+    pieces: dict[int, np.ndarray] = {}
+    batches: dict[tuple[int, int, bool, bool], list[int]] = {}
+    for i, g in enumerate(groups):
+        n, _cs, tlog, flags, _norm, max_sv, _init, payload, stots = g
+        if flags & 1:
+            pieces[i] = np.frombuffer(payload, "<u2")
+        elif flags & 2:
+            pieces[i] = np.full(n, np.frombuffer(payload, "<u2")[0], np.uint16)
+        else:
+            batches.setdefault((_pad_n16(n), tlog, stots is not None,
+                                max_sv > 1023), []).append(i)
+    return pieces, batches
+
+
+def stage_decode16_batch(groups, idxs, n_pad: int, tlog: int,
+                         have_tots: bool, big: bool):
+    """numpy inputs of the decode entries for a batch of parsed U16 groups:
+    (csize_hw, tables, init_states, streams, steptots [G,T,8] or None, t2,
+    hrows)."""
+    G = len(idxs)
+    T = n_pad // TURBO_LANES
+    hrows = _round8(max((groups[i][1] + 127) // 128 for i in idxs) + 16)
+    srows = stream_word_rows(hrows)
+    tbl = np.zeros((G, tch_of("u16x" if big else "u16", tlog), 128), np.int32)
+    init = np.zeros((G, 8, 128), np.int32)
+    hws = np.zeros((G, srows, 128), np.int32)
+    cs = np.zeros(G, np.int32)
+    tots = np.zeros((G, T, 8), np.int32) if have_tots else None
+
+    def fill(j_i):
+        j, i = j_i
+        _n, csize_hw, _tl, _fl, norm, _msv, ini, payload, stots = groups[i]
+        tbl[j] = (pack_rans16x_dtable if big else pack_rans16_dtable)(norm, tlog)
+        init[j] = ini.view(np.int32).reshape(8, 128)
+        hws[j] = pack_stream_words(payload, srows)
+        cs[j] = csize_hw
+        if have_tots:
+            tots[j] = stots
+
+    _map(fill, list(enumerate(idxs)))
+    return cs, tbl, init, hws, tots, n_pad // RANS16_STEP_SYMS, hrows
+
+
+def turbo16_decompress_device(blob: bytes, windows: int = 0,
+                              device=None) -> np.ndarray:
+    """Decompress a TurboRANS-U16 stream with the decode kernels: speed
+    frames through rans_decode_v2 or rans_decode_w (windows as in
+    turbo_decompress_device), ratio frames through rans_decode.  Raises
+    ValueError on a corrupt group.  device: as turbo_compress_device."""
+    dev = resolve_device(device)
+    groups = parse_groups16(blob)
+    pieces, batches = plan_decode16(groups)
+    for (n_pad, tlog, have_tots, big), idxs in batches.items():
+        G = len(idxs)
+        debuglog(3, "turbo16 decode: batch of %d groups, n_pad=%d, v2=%s, "
+                 "big=%s", G, n_pad, have_tots, big)
+        cs, tbl, init, hws, tots, t2, hrows = stage_decode16_batch(
+            groups, idxs, n_pad, tlog, have_tots, big)
+        ins = to_tensors(dev, csize_hw=cs, tables=tbl, init_states=init,
+                         streams=hws)
+        common = (ins["csize_hw"], ins["tables"], ins["init_states"],
+                  ins["streams"])
+        if have_tots:
+            steptots = to_tensors(dev, steptots=tots)["steptots"]
+            w_nway, w_s = _window_dispatch(windows, t2, hrows, tlog, G,
+                                           False, True, big)
+            if w_nway:
+                outw, err = rans_decode_w(*common, steptots, t2, hrows,
+                                          w_nway, tlog, w_s, u16=True,
+                                          u16x=big)
+            else:
+                outw, err = rans_decode_v2(*common, steptots, t2, hrows,
+                                           tlog, u16=True, u16x=big)
+        else:
+            outw, err = rans_decode(*common, t2, hrows, True, tlog, big)
+        err = err.cpu().numpy()
+        if err.any():
+            raise ValueError(
+                f"turbo-u16 device decode: corrupt groups {np.nonzero(err)[0]}")
+        outw = outw.cpu().numpy()
+        for j, i in enumerate(idxs):
+            pieces[i] = (outw[j].astype("<i4").reshape(-1)
+                         .view(np.uint16)[: groups[i][0]].copy())
+    if not pieces:
+        return np.zeros(0, np.uint16)
+    return np.concatenate([pieces[i] for i in range(len(groups))])

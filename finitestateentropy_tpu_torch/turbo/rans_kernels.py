@@ -4,25 +4,41 @@ The entries keep the JAX package's names, argument order (less the
 TPU-only ``interpret`` and the modes not ported yet), output shapes and
 dtypes (i32 holding u32 bit patterns):
 
-* ``rans_encode2``  -> csrc/rans_encode.cu (replaces _rans_encode_rl_kernel)
-* ``rans_decode_v2`` and ``rans_decode_w`` -> csrc/rans_decode.cu (replace
-  _rans_decode_v2_kernel and _rans_decode_w_kernel, which compute the same
-  function; the port keeps both entries so the routing stays visible)
+* ``rans_encode2`` -> csrc/rans_encode.cu (replaces _rans_encode_rl_kernel):
+  the packed speed-mode wire, two halfwords per output word;
+* ``rans_encode`` -> csrc/rans_encode.cu (replaces _rans_encode_kernel): the
+  U16 codec's encode, one halfword per output i32;
+* ``rans_decode_v2`` and ``rans_decode_w`` on the rows wire ([G,T,8] shipped
+  row counts) -> csrc/rans_decode.cu (replace _rans_decode_v2_kernel and
+  _rans_decode_w_kernel, which compute the same function; the port keeps
+  both entries so the routing stays visible);
+* ``rans_decode_v2`` and ``rans_decode_w`` on the totals wire ([G,T]
+  shipped step totals) and ``rans_decode`` (v1 frames, no section) ->
+  csrc/rans_decode_flat.cu (replaces _rans_decode_v2t_kernel, the totals
+  mode of _rans_decode_w_kernel and _rans_decode_kernel): the rank is a
+  prefix over all 1024 lanes, so one block decodes a whole group.
 
-Each runs one of three wire modes, named by the JAX wrappers' flags:
+Wire modes, named by the JAX wrappers' flags:
 
 * ``byte`` (the default): 4 byte symbols per source / output word (spc 4);
 * ``pair`` (encode ``u16=True``; decode ``u16=True, pair=True``): 2 pair ids
   per source word, 2 u16 LUT values per output word (spc 2);
 * ``quad`` (``quad=True``): 1 id per source word, the u32 LUT value is the
-  output word (spc 1).
+  output word (spc 1);
+* ``u16`` (``u16=True``, U16 codec, symbols <= 1023): 2 u16 symbols per
+  word (spc 2), decode entries (cumul << 21) | (freq << 10) | sym;
+* ``u16x`` (``u16=True, u16x=True``, symbols <= 4095, tableLog 12-13): as
+  u16, with split decode tables (freq << 13) | (slot - cumul) plus a
+  symbol plane (tables.pack_rans16x_dtable).
 
 A step is t = spc*t4 + p.  Pair and quad decode tables carry the 256-entry
 id LUT after the main table (tables.pack_pair_dtable / pack_quad_dtable).
+The totals wire is byte-only, as the JAX package writes it.
 
 On CPU tensors a wrapper runs the plain PyTorch version beside it; on CUDA
 tensors it launches the kernel, or raises.  ``launches`` counts kernel
-launches per entry and mode ("rans_encode2:quad"); nothing else adds to it.
+launches per entry and mode ("rans_encode2:quad", "rans_decode_w:totals");
+nothing else adds to it.
 
 The plain versions work in int64 with explicit 32-bit masks: torch's ``>>``
 on int32 is arithmetic and uint32 has little support, while encoder states
@@ -37,19 +53,33 @@ import torch
 from ._build import load
 from .format import TURBO_LANES
 from .rans import RANS_L, RANS_TABLELOG
-from .tables import _enc_chunking, stream_word_rows
+from .tables import _enc_chunking, stream_word_rows, tch_of
 
-SPC = {"byte": 4, "pair": 2, "quad": 1}   # steps per source / output word
-ENTRIES = ("rans_encode2", "rans_decode_v2", "rans_decode_w")
-launches = {f"{e}:{m}": 0 for e in ENTRIES for m in SPC}
+# steps per source / output word of each wire mode
+SPC = {"byte": 4, "pair": 2, "quad": 1, "u16": 2, "u16x": 2}
+# the modes each entry launches in; "totals" is the totals wire (byte symbols)
+LAUNCH_MODES = {
+    "rans_encode2": ("byte", "pair", "quad"),
+    "rans_encode": ("u16", "u16x"),
+    "rans_decode_v2": ("byte", "pair", "quad", "totals", "u16", "u16x"),
+    "rans_decode_w": ("byte", "pair", "quad", "totals", "u16", "u16x"),
+    "rans_decode": ("byte", "pair", "u16", "u16x"),
+}
+launches = {f"{e}:{m}": 0 for e, ms in LAUNCH_MODES.items() for m in ms}
+_MODE_ID = {"byte": 0, "pair": 1, "quad": 2, "u16": 3, "u16x": 4}  # csrc/rans_step.cuh
 
 _M32 = 0xFFFFFFFF
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGS = {
-    "rans_encode": ("rans_encode_launch",
-                    [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "rans_decode": ("rans_decode_launch",
-                    [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+_SIGS = {   # C entry -> (library, argument types)
+    "rans_encode_launch": (
+        "rans_encode", [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "rans_encode16_launch": (
+        "rans_encode", [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "rans_decode_launch": (
+        "rans_decode", [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "rans_decode_flat_launch": (
+        "rans_decode_flat",
+        [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 
@@ -58,19 +88,18 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _mode(u16: bool, pair: bool, quad: bool) -> str:
+def _mode(u16: bool, pair: bool, quad: bool, u16x: bool = False) -> str:
     """The wire mode named by the JAX wrappers' flags (see the module
-    docstring); u16 tables without the pair LUT are the U16 codec's."""
+    docstring)."""
     if quad:
         return "quad"
     if u16 and pair:
         return "pair"
     if u16:
-        raise NotImplementedError(
-            "u16-symbol tables (the TurboRANS-U16 codec) arrive with "
-            "ROADMAP.md queue A item 6")
-    if pair:
-        raise ValueError("the pair wire runs with u16=True and pair=True")
+        return "u16x" if u16x else "u16"
+    if pair or u16x:
+        raise ValueError("the pair wire runs with u16=True and pair=True, "
+                         "the wide U16 tables with u16=True and u16x=True")
     return "byte"
 
 
@@ -91,8 +120,8 @@ def _mulhi32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _with_zero_entry(tbl: torch.Tensor) -> torch.Tensor:
-    """[G, 256] table + a zero column 256: ids past the table (only a
-    malformed pair source can hold one) read 0, as the JAX kernels' chunk
+    """[G, n] table + a zero column n: symbols or ids past the table (only
+    a malformed source can hold one) read 0, as the JAX kernels' chunk
     selects give them."""
     return torch.cat([tbl, torch.zeros_like(tbl[:, :1])], dim=1)
 
@@ -114,8 +143,8 @@ def _check(t: torch.Tensor, name: str, shape: tuple) -> None:
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
 
 
-def _launch(lib_name: str, *args) -> None:
-    fn_name, argtypes = _SIGS[lib_name]
+def _launch(fn_name: str, *args) -> None:
+    lib_name, argtypes = _SIGS[fn_name]
     fn = getattr(load(lib_name), fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
@@ -124,43 +153,48 @@ def _launch(lib_name: str, *args) -> None:
         raise RuntimeError(f"{fn_name}: CUDA launch failed (cudaError_t {rc})")
 
 
+def _stream_of(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 # ---------------------------------------------------------------------------
 # Encode
 # ---------------------------------------------------------------------------
 
 
-def rans_encode2_plain(fc_tables, magic_tables, src_words, t4_count: int,
-                       hrows_cap: int, tlog: int = RANS_TABLELOG,
-                       u16: bool = False, quad: bool = False):
-    """Plain PyTorch version of the encode kernel (same inputs, outputs).
+def _encode_plain(fc_tables, magic_tables, src_words, t4_count: int,
+                  nhw: int, tlog: int, spc: int):
+    """The encode kernels' math over all G groups and 1024 lanes at once.
 
-    Steps run in reverse over all G groups and 1024 lanes at once; flagged
-    lanes scatter their halfword to cursor + total - rank (flat inclusive
-    rank), unflagged lanes to a sink column that is dropped."""
-    spc = SPC[_mode(u16, u16, quad)]
+    Steps run in reverse; flagged lanes scatter their halfword to cursor +
+    total - rank (flat inclusive rank), unflagged lanes and halfwords at or
+    past nhw to a sink column that is dropped.  Tables of 32 chunks (4096
+    symbols) hold 14-bit fields, smaller ones 12-bit fields.  Returns
+    (halfwords[G, nhw] int64, finals[G,8,128] i32, csize[G] i32,
+    stots[G, T, 8] i32)."""
     G = fc_tables.shape[0]
+    nsyms = fc_tables[0].numel()
     dev = fc_tables.device
     T = spc * t4_count
-    srows = stream_word_rows(hrows_cap)
-    nhw = srows * 256
-    fc = _with_zero_entry(_u32(fc_tables.reshape(G, 256)))
-    mg = _with_zero_entry(_u32(magic_tables.reshape(G, 256)))
+    fc = _with_zero_entry(_u32(fc_tables.reshape(G, nsyms)))
+    mg = _with_zero_entry(_u32(magic_tables.reshape(G, nsyms)))
     words = _u32(src_words.reshape(G, t4_count, TURBO_LANES))
     x = torch.full((G, TURBO_LANES), RANS_L, dtype=torch.int64, device=dev)
     cursor = torch.zeros((G, 1), dtype=torch.int64, device=dev)
     hw = torch.zeros((G, nhw + 1), dtype=torch.int64, device=dev)
     stots = torch.zeros((G, T, 8), dtype=torch.int32, device=dev)
     shift = 32 - tlog
+    sym_mask = 0xFFFF if spc == 2 else 0xFF
     for t in range(T - 1, -1, -1):
         t4, p = divmod(t, spc)
-        if spc == 2:    # pair ids: one u16 per half word
-            sym = ((words[:, t4] >> (16 * p)) & 0xFFFF).clamp(max=256)
-        else:           # byte p of the word; quad: the id in byte 0
-            sym = (words[:, t4] >> (8 * p)) & 0xFF
+        # byte p of the word, u16 p (pair ids, u16 symbols), or the quad id
+        sym = ((words[:, t4] >> (32 // spc * p)) & sym_mask).clamp(max=nsyms)
         e = torch.gather(fc, 1, sym)
         m = torch.gather(mg, 1, sym)
-        f = e & 0xFFF
-        cu = (e >> 12) & 0xFFF
+        if nsyms == 4096:
+            f, cu = e & 0x3FFF, e >> 14
+        else:
+            f, cu = e & 0xFFF, (e >> 12) & 0xFFF
         flag = x >= ((f << shift) & _M32)
         emit = x & 0xFFFF
         x = torch.where(flag, x >> 16, x)
@@ -178,10 +212,22 @@ def rans_encode2_plain(fc_tables, magic_tables, src_words, t4_count: int,
         hw.scatter_(1, pos, emit)
         stots[:, t] = flag.view(G, 8, 128).sum(dim=2).to(torch.int32)
         cursor = cursor + total
-    pairs = hw[:, :nhw].view(G, nhw // 2, 2)
+    return (hw[:, :nhw], _i32(x).view(G, 8, 128), cursor[:, 0].to(torch.int32),
+            stots)
+
+
+def rans_encode2_plain(fc_tables, magic_tables, src_words, t4_count: int,
+                       hrows_cap: int, tlog: int = RANS_TABLELOG,
+                       u16: bool = False, quad: bool = False):
+    """Plain PyTorch version of rans_encode2's kernel (same inputs, outputs)."""
+    spc = SPC[_mode(u16, u16, quad)]
+    G = fc_tables.shape[0]
+    srows = stream_word_rows(hrows_cap)
+    hw, fin, csize, stots = _encode_plain(fc_tables, magic_tables, src_words,
+                                          t4_count, srows * 256, tlog, spc)
+    pairs = hw.view(G, srows * 128, 2)
     stream = _i32(pairs[..., 0] | (pairs[..., 1] << 16)).view(G, srows, 128)
-    return (stream, _i32(x).view(G, 8, 128),
-            cursor[:, 0].to(torch.int32), stots)
+    return stream, fin, csize, stots
 
 
 def _encode_kernel(fc_tables, magic_tables, src_words, t4_count: int,
@@ -196,11 +242,10 @@ def _encode_kernel(fc_tables, magic_tables, src_words, t4_count: int,
     stots = torch.empty((G, spc * t4_count, 8), dtype=torch.int32, device=dev)
     fc, mg, src = (a.contiguous() for a in (fc_tables, magic_tables, src_words))
     with torch.cuda.device(dev):
-        _launch("rans_encode", fc.data_ptr(), mg.data_ptr(), src.data_ptr(),
-                stream.data_ptr(), srows * 256, finals.data_ptr(),
-                csize.data_ptr(), stots.data_ptr(), G, t4_count, tlog, spc,
-                torch.cuda.current_stream(dev).cuda_stream)
-    launches[f"rans_encode2:{mode}"] += 1
+        _launch("rans_encode_launch", fc.data_ptr(), mg.data_ptr(),
+                src.data_ptr(), stream.data_ptr(), srows * 256,
+                finals.data_ptr(), csize.data_ptr(), stots.data_ptr(), G,
+                t4_count, tlog, spc, _stream_of(dev))
     return stream, finals, csize, stots
 
 
@@ -215,22 +260,95 @@ def rans_encode2(fc_tables, magic_tables, src_words, t4_count: int,
     turbo/format.py).  Returns (stream[G, stream_word_rows(hrows_cap), 128]
     i32 — 2 LE halfwords per word, the wire payload is these words' first
     csize*2 bytes, zero beyond —, finals[G,8,128] i32, csize_hw[G] i32,
-    stots[G, spc*t4_count, 8] i32 per-step per-row renorm counts)."""
+    stots[G, spc*t4_count, 8] i32 per-step per-row renorm counts).  The
+    frames of every speed and ratio mode come from this one encode: ratio
+    frames drop the counts, totals frames ship their sums."""
     G = fc_tables.shape[0]
-    if u16 and fc_tables.dim() == 3 and fc_tables.shape[1] != 2:
-        raise NotImplementedError(
-            "u16-symbol encode tables (the TurboRANS-U16 codec) arrive with "
-            "ROADMAP.md queue A item 6")
     mode = _mode(u16, u16, quad)
     _enc_chunking(t4_count, SPC[mode])  # frame-shaping rule: raises on misfit
+    # 256-entry tables only: the U16 codec encodes through rans_encode
     _check(fc_tables, "fc_tables", (G, 2, 128))
     _check(magic_tables, "magic_tables", (G, 2, 128))
     _check(src_words, "src_words", (G, t4_count * 8, 128))
     if not _on_cuda(fc_tables, magic_tables, src_words):
         return rans_encode2_plain(fc_tables, magic_tables, src_words,
                                   t4_count, hrows_cap, tlog, u16, quad)
-    return _encode_kernel(fc_tables, magic_tables, src_words, t4_count,
-                          hrows_cap, tlog, mode)
+    out = _encode_kernel(fc_tables, magic_tables, src_words, t4_count,
+                         hrows_cap, tlog, mode)
+    launches[f"rans_encode2:{mode}"] += 1
+    return out
+
+
+def _encode16_mode(fc_tables, magic_tables, src_words, t4_count: int,
+                   u16: bool) -> str:
+    """The U16 encode's mode from its tables' width: 8 chunks (1024
+    symbols) u16, 32 chunks (4096 symbols, 14-bit fields) u16x."""
+    if not u16:
+        raise NotImplementedError(
+            "rans_encode of byte symbols serves only the multi-device "
+            "compress, which arrives with ROADMAP.md queue A item 9")
+    G = fc_tables.shape[0]
+    nch = fc_tables.shape[1] if fc_tables.dim() == 3 else 0
+    if nch not in (8, 32):
+        raise ValueError(f"fc_tables: expected [G, 8 or 32, 128], got "
+                         f"{tuple(fc_tables.shape)}")
+    _check(fc_tables, "fc_tables", (G, nch, 128))
+    _check(magic_tables, "magic_tables", (G, nch, 128))
+    _check(src_words, "src_words", (G, t4_count * 8, 128))
+    return "u16" if nch == 8 else "u16x"
+
+
+def rans_encode_plain(fc_tables, magic_tables, src_words, t4_count: int,
+                      hrows_cap: int, u16: bool = False,
+                      tlog: int = RANS_TABLELOG, steptots: bool = True):
+    """Plain PyTorch version of rans_encode's kernel (same inputs, outputs)."""
+    _encode16_mode(fc_tables, magic_tables, src_words, t4_count, u16)
+    G = fc_tables.shape[0]
+    hw, fin, csize, stots = _encode_plain(fc_tables, magic_tables, src_words,
+                                          t4_count, hrows_cap * 128, tlog, 2)
+    return (hw.to(torch.int32).view(G, hrows_cap, 128), fin, csize,
+            stots if steptots else None)
+
+
+def _encode16_kernel(fc_tables, magic_tables, src_words, t4_count: int,
+                     hrows_cap: int, tlog: int, mode: str):
+    G = fc_tables.shape[0]
+    dev = fc_tables.device
+    stream = torch.zeros((G, hrows_cap, 128), dtype=torch.int32, device=dev)
+    finals = torch.empty((G, 8, 128), dtype=torch.int32, device=dev)
+    csize = torch.empty((G,), dtype=torch.int32, device=dev)
+    stots = torch.empty((G, 2 * t4_count, 8), dtype=torch.int32, device=dev)
+    fc, mg, src = (a.contiguous() for a in (fc_tables, magic_tables, src_words))
+    with torch.cuda.device(dev):
+        _launch("rans_encode16_launch", fc.data_ptr(), mg.data_ptr(),
+                src.data_ptr(), stream.data_ptr(), hrows_cap * 128,
+                finals.data_ptr(), csize.data_ptr(), stots.data_ptr(), G,
+                t4_count, tlog, fc_tables.shape[1], _stream_of(dev))
+    return stream, finals, csize, stots
+
+
+def rans_encode(fc_tables, magic_tables, src_words, t4_count: int,
+                hrows_cap: int, u16: bool = False,
+                tlog: int = RANS_TABLELOG, steptots: bool = True):
+    """The U16 codec's encode (the JAX v1 encode entry) of G groups.
+
+    fc_tables[G,8,128] i32 ((cumul<<12)|freq, symbols <= 1023) or
+    [G,32,128] ((cumul<<14)|freq, symbols <= 4095); magic_tables the same
+    shape (floor(2^32/freq), clipped); src_words[G, t4_count*8, 128] i32 (2
+    u16 symbols per word, the lane layout of turbo/rans16.py).  Returns
+    (stream[G, hrows_cap, 128] i32 — one halfword per entry, in order; the
+    wire payload is the first csize_hw entries, zero beyond —,
+    finals[G,8,128] i32, csize_hw[G] i32, stots[G, 2*t4_count, 8] i32 or
+    None when steptots is False).  Only u16=True is ported: the byte mode
+    serves the multi-device compress (ROADMAP.md queue A item 9)."""
+    mode = _encode16_mode(fc_tables, magic_tables, src_words, t4_count, u16)
+    if not _on_cuda(fc_tables, magic_tables, src_words):
+        return rans_encode_plain(fc_tables, magic_tables, src_words, t4_count,
+                                 hrows_cap, u16, tlog, steptots)
+    stream, fin, csize, stots = _encode16_kernel(
+        fc_tables, magic_tables, src_words, t4_count, hrows_cap, tlog, mode)
+    launches[f"rans_encode:{mode}"] += 1
+    return stream, fin, csize, stots if steptots else None
 
 
 # ---------------------------------------------------------------------------
@@ -239,37 +357,48 @@ def rans_encode2(fc_tables, magic_tables, src_words, t4_count: int,
 
 
 def _decode_prep(csize_hw, steptots):
-    """Cursors [G,T], row offsets [G,T,8] (exclusive prefix of the shipped
-    row counts) and the cursor-consistency flag [G], as the JAX wrappers
-    compute them outside Pallas (rans_kernels.py:1253-1294, :1485-1513)."""
+    """Cursors [G,T], row offsets [G,T,8] (the exclusive prefix of shipped
+    row counts; None on the totals wire) and the cursor-consistency flag
+    [G], as the JAX wrappers compute them outside Pallas
+    (rans_kernels.py:1253-1294, :1485-1513)."""
     st = steptots.to(torch.int64)
-    totals = st.sum(dim=2)
+    totals = st if st.dim() == 2 else st.sum(dim=2)
     cursors = csize_hw.to(torch.int64)[:, None] - (torch.cumsum(totals, 1) - totals)
     bad = (cursors[:, -1] - totals[:, -1]) != 0
-    roff = torch.cumsum(st, dim=2) - st
-    return cursors.to(torch.int32), roff.to(torch.int32), bad
+    roff = None if st.dim() == 2 else (torch.cumsum(st, dim=2) - st).to(torch.int32)
+    return cursors.to(torch.int32), roff, bad
 
 
 def _err(res: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
-    """err[G]: 1 where a final state is not 2^16 or the counts disagree
-    with csize, else 0."""
+    """err[G]: 1 where a final state is not 2^16 or the cursors are
+    inconsistent (counts that disagree with csize, or a v1 chain that does
+    not end at 0), else 0."""
     return ((res != 0).flatten(1).any(dim=1) | bad).to(torch.int32)
 
 
-def _decode_rows_plain(tables, init_states, streams, cursors, roff,
-                       t4_count: int, tlog: int, mode: str):
+def _decode_plain(tables, init_states, streams, t4_count: int, tlog: int,
+                  mode: str, cursors=None, roff=None, csize_hw=None):
+    """The decode kernels' math over all G groups and 1024 lanes at once.
+
+    Rank: with roff (rows wire) the shipped row offset plus the rank among
+    the row's flagged lanes; without, the flat prefix over all 1024 lanes.
+    Cursor: cursors[:, t] when given (rows and totals wires); else the v1
+    chain, from csize_hw down by each step's total.  Stream indices clamp
+    into the group's buffer.  Returns (out[G, t4*8, 128] i32, res[G,8,128]
+    i32 = final states ^ 2^16, the v1 chain's end cursor [G] or None)."""
     spc = SPC[mode]
     G = tables.shape[0]
     dev = tables.device
     T = spc * t4_count
     tbl = _u32(tables.reshape(G, -1))
     lut = _with_zero_entry(tbl[:, -256:])   # pair / quad: id -> LUT value
+    plane = max(1 << tlog, 128)             # u16x: the symbol plane's offset
     w = _u32(streams.reshape(G, -1))
     hw = torch.stack([w & 0xFFFF, w >> 16], dim=2).reshape(G, -1)
     nhw = hw.shape[1]
     x = _u32(init_states.reshape(G, TURBO_LANES))
-    cur = cursors.to(torch.int64)
-    ro = roff.to(torch.int64)
+    cur = None if cursors is None else cursors.to(torch.int64)
+    chain = None if cursors is not None else csize_hw.to(torch.int64)[:, None]
     row_of_lane = torch.arange(TURBO_LANES, device=dev) // 128
     syms = torch.empty((G, T, TURBO_LANES), dtype=torch.int64, device=dev)
     mask = (1 << tlog) - 1
@@ -279,68 +408,110 @@ def _decode_rows_plain(tables, init_states, streams, cursors, roff,
         if mode == "byte":      # (cumul << 20) | (freq << 8) | sym
             syms[:, t] = e & 0xFF
             x = ((e >> 8) & 0xFFF) * (x >> tlog) + slot - (e >> 20)
+        elif mode == "u16":     # (cumul << 21) | (freq << 10) | sym
+            syms[:, t] = e & 0x3FF
+            x = ((e >> 10) & 0x7FF) * (x >> tlog) + slot - (e >> 21)
+        elif mode == "u16x":    # (freq << 13) | j, then the symbol plane
+            syms[:, t] = torch.gather(tbl, 1, slot + plane)
+            x = (e >> 13) * (x >> tlog) + (e & 0x1FFF)
         else:                   # (id << 2*tlog) | (freq << tlog) | slot-cumul
             syms[:, t] = torch.gather(lut, 1, (e >> (2 * tlog)).clamp(max=256))
             x = ((e >> tlog) & mask) * (x >> tlog) + (e & mask)
         x = x & _M32
         flag = x < RANS_L
-        within = torch.cumsum(flag.view(G, 8, 128), dim=2).view(G, TURBO_LANES)
-        rank = ro[:, t][:, row_of_lane] + within
-        pos = (cur[:, t : t + 1] - rank).clamp(0, nhw - 1)
+        if roff is None:
+            rank = torch.cumsum(flag, dim=1)
+        else:
+            within = torch.cumsum(flag.view(G, 8, 128), dim=2).view(G, TURBO_LANES)
+            rank = roff[:, t].to(torch.int64)[:, row_of_lane] + within
+        start = chain if cur is None else cur[:, t : t + 1]
+        pos = (start - rank).clamp(0, nhw - 1)
         v = torch.gather(hw, 1, pos)
         x = torch.where(flag, ((x << 16) | v) & _M32, x)
+        if cur is None:
+            chain = chain - rank[:, -1:]
     s = syms.view(G, t4_count, spc, TURBO_LANES)
     word = s[:, :, 0]
-    for p in range(1, spc):     # byte p at bit 8p; pair value p at bit 16p
+    for p in range(1, spc):     # byte p at bit 8p; u16 value p at bit 16p
         word = word | (s[:, :, p] << (32 // spc * p))
     return (_i32(word).view(G, t4_count * 8, 128),
-            _i32(x ^ RANS_L).view(G, 8, 128))
+            _i32(x ^ RANS_L).view(G, 8, 128),
+            None if chain is None else chain[:, 0])
 
 
 def _decode_kernel(tables, init_states, streams, cursors, roff,
                    t4_count: int, tlog: int, mode: str):
+    """The rows-wire kernel (csrc/rans_decode.cu)."""
     G = tables.shape[0]
     dev = tables.device
     out = torch.empty((G, t4_count * 8, 128), dtype=torch.int32, device=dev)
     res = torch.empty((G, 8, 128), dtype=torch.int32, device=dev)
     tbl, ini, strm = (a.contiguous() for a in (tables, init_states, streams))
     with torch.cuda.device(dev):
-        _launch("rans_decode", tbl.data_ptr(), tbl[0].numel(), ini.data_ptr(),
-                strm.data_ptr(), strm[0].numel() * 2, cursors.data_ptr(),
-                roff.data_ptr(), out.data_ptr(), res.data_ptr(), G, t4_count,
-                tlog, SPC[mode], torch.cuda.current_stream(dev).cuda_stream)
+        _launch("rans_decode_launch", tbl.data_ptr(), tbl[0].numel(),
+                ini.data_ptr(), strm.data_ptr(), strm[0].numel() * 2,
+                cursors.data_ptr(), roff.data_ptr(), out.data_ptr(),
+                res.data_ptr(), G, t4_count, tlog, _MODE_ID[mode],
+                _stream_of(dev))
     return out, res
+
+
+def _decode_flat_kernel(tables, init_states, streams, csize_hw, cursors,
+                        t4_count: int, tlog: int, mode: str):
+    """The flat-rank kernel (csrc/rans_decode_flat.cu): cursors [G,T] on
+    the totals wire, None for the v1 chain from csize_hw.  Returns (out,
+    res, end cursor [G] i32)."""
+    G = tables.shape[0]
+    dev = tables.device
+    out = torch.empty((G, t4_count * 8, 128), dtype=torch.int32, device=dev)
+    res = torch.empty((G, 8, 128), dtype=torch.int32, device=dev)
+    cend = torch.empty((G,), dtype=torch.int32, device=dev)
+    tbl, ini, strm, cs = (a.contiguous() for a in
+                          (tables, init_states, streams, csize_hw))
+    cur = None if cursors is None else cursors.contiguous()
+    with torch.cuda.device(dev):
+        _launch("rans_decode_flat_launch", tbl.data_ptr(), tbl[0].numel(),
+                ini.data_ptr(), strm.data_ptr(), strm[0].numel() * 2,
+                cs.data_ptr(), None if cur is None else cur.data_ptr(),
+                out.data_ptr(), res.data_ptr(), cend.data_ptr(), G, t4_count,
+                tlog, _MODE_ID[mode], _stream_of(dev))
+    return out, res, cend
 
 
 def _check_decode(csize_hw, tables, init_states, streams, steptots,
                   t4_count: int, hrows: int, tlog: int, mode: str) -> None:
+    """Shapes and types of a decode entry's inputs; steptots None is v1."""
     G = tables.shape[0]
-    if steptots.dim() != 3:
-        raise NotImplementedError(
-            "totals-wire decode (FLAG_TOTALS, [G,T] steptots) arrives with "
-            "ROADMAP.md queue A item 5")
-    if not 5 <= tlog <= 12:
-        raise ValueError(f"tableLog must be in [5, 12], got {tlog}")
-    tch = max((1 << tlog) // 128, 1) + (0 if mode == "byte" else 2)
+    top = 13 if mode == "u16x" else 12
+    if not 5 <= tlog <= top:
+        raise ValueError(f"tableLog must be in [5, {top}], got {tlog}")
     _check(csize_hw, "csize_hw", (G,))
-    _check(tables, "tables", (G, tch, 128))
+    _check(tables, "tables", (G, tch_of(mode, tlog), 128))
     _check(init_states, "init_states", (G, 8, 128))
     _check(streams, "streams", (G, stream_word_rows(hrows), 128))
-    _check(steptots, "steptots", (G, SPC[mode] * t4_count, 8))
+    if steptots is None:
+        return
+    T = SPC[mode] * t4_count
+    if steptots.dim() == 2:
+        if mode != "byte":
+            raise ValueError("the totals wire (FLAG_TOTALS) is byte-only")
+        _check(steptots, "steptots", (G, T))
+    else:
+        _check(steptots, "steptots", (G, T, 8))
 
 
 def rans_decode_plain(csize_hw, tables, init_states, streams, steptots,
                       t4_count: int, hrows: int, tlog: int = RANS_TABLELOG,
-                      u16: bool = False, pair: bool = False,
-                      quad: bool = False):
-    """Plain PyTorch version of the decode kernel behind rans_decode_v2 and
+                      u16: bool = False, u16x: bool = False,
+                      pair: bool = False, quad: bool = False):
+    """Plain PyTorch version of the kernels behind rans_decode_v2 and
     rans_decode_w (same inputs and outputs as rans_decode_v2)."""
-    mode = _mode(u16, pair, quad)
+    mode = _mode(u16, pair, quad, u16x)
     _check_decode(csize_hw, tables, init_states, streams, steptots,
                   t4_count, hrows, tlog, mode)
     cursors, roff, bad = _decode_prep(csize_hw, steptots)
-    out, res = _decode_rows_plain(tables, init_states, streams, cursors, roff,
-                                  t4_count, tlog, mode)
+    out, res, _ = _decode_plain(tables, init_states, streams, t4_count, tlog,
+                                mode, cursors, roff)
     return out, _err(res, bad)
 
 
@@ -349,41 +520,90 @@ def _decode(entry: str, csize_hw, tables, init_states, streams, steptots,
     _check_decode(csize_hw, tables, init_states, streams, steptots,
                   t4_count, hrows, tlog, mode)
     cursors, roff, bad = _decode_prep(csize_hw, steptots)
-    if _on_cuda(csize_hw, tables, init_states, streams, steptots):
-        out, res = _decode_kernel(tables, init_states, streams, cursors, roff,
-                                  t4_count, tlog, mode)
-        launches[f"{entry}:{mode}"] += 1
+    if not _on_cuda(csize_hw, tables, init_states, streams, steptots):
+        out, res, _ = _decode_plain(tables, init_states, streams, t4_count,
+                                    tlog, mode, cursors, roff)
+        return out, _err(res, bad)
+    if roff is None:            # totals wire: the flat-rank kernel
+        out, res, _ = _decode_flat_kernel(tables, init_states, streams,
+                                          csize_hw, cursors, t4_count, tlog,
+                                          mode)
+        launches[f"{entry}:totals"] += 1
     else:
-        out, res = _decode_rows_plain(tables, init_states, streams, cursors,
-                                      roff, t4_count, tlog, mode)
+        out, res = _decode_kernel(tables, init_states, streams, cursors,
+                                  roff, t4_count, tlog, mode)
+        launches[f"{entry}:{mode}"] += 1
     return out, _err(res, bad)
 
 
 def rans_decode_v2(csize_hw, tables, init_states, streams, steptots,
                    t4_count: int, hrows: int, tlog: int = RANS_TABLELOG,
-                   u16: bool = False, pair: bool = False, quad: bool = False):
-    """Rows-wire decode of G groups (the JAX resident-decoder entry).
+                   u16: bool = False, u16x: bool = False, pair: bool = False,
+                   quad: bool = False):
+    """Speed-wire decode of G groups (the JAX resident-decoder entry).
 
-    csize_hw[G] i32; tables[G, max(2^tlog/128, 1) (+2 for pair and quad),
-    128] i32 (tables.pack_*_dtable); init_states[G,8,128] i32;
+    csize_hw[G] i32; tables[G, tch, 128] i32 (tables.pack_*_dtable; see
+    state.LAYOUTS for each mode's tch); init_states[G,8,128] i32;
     streams[G, stream_word_rows(hrows), 128] i32 (packed payload words,
-    pack_stream_words); steptots[G, spc*t4_count, 8] i32 shipped per-row
-    renorm counts.  Returns (out[G, t4_count*8, 128] i32 — 4 bytes, 2 pair
-    values or 1 quad value per word —, err[G] i32, 0 = ok); err covers
-    final states != 2^16 and counts that disagree with csize_hw."""
+    pack_stream_words); steptots either [G, spc*t4_count, 8] i32 shipped
+    per-row renorm counts (FLAG_STEPTOTS) or [G, 4*t4_count] i32 shipped
+    step totals (FLAG_TOTALS, byte mode).  Returns (out[G, t4_count*8, 128]
+    i32 — 4 bytes, 2 u16 values or 1 quad value per word —, err[G] i32, 0 =
+    ok); err covers final states != 2^16 and counts that disagree with
+    csize_hw."""
     return _decode("rans_decode_v2", csize_hw, tables, init_states, streams,
-                   steptots, t4_count, hrows, tlog, _mode(u16, pair, quad))
+                   steptots, t4_count, hrows, tlog,
+                   _mode(u16, pair, quad, u16x))
 
 
 def rans_decode_w(csize_hw, tables, init_states, streams, steptots,
                   t4_count: int, hrows: int, nway: int,
                   tlog: int = RANS_TABLELOG, S: int = 32, u16: bool = False,
-                  pair: bool = False, quad: bool = False):
+                  u16x: bool = False, pair: bool = False, quad: bool = False):
     """The JAX windowed-decoder entry: same inputs and outputs as
     rans_decode_v2, plus its shape rule (t4_count a multiple of the window
     span S, S a multiple of 128//spc supercycles).  nway and S tune the
-    TPU's VMEM windows and have no effect on the GPU kernel."""
-    mode = _mode(u16, pair, quad)
+    TPU's VMEM windows and have no effect on the GPU kernels."""
+    mode = _mode(u16, pair, quad, u16x)
     assert t4_count % S == 0 and S % (128 // SPC[mode]) == 0, (t4_count, S)
     return _decode("rans_decode_w", csize_hw, tables, init_states, streams,
                    steptots, t4_count, hrows, tlog, mode)
+
+
+def rans_decode_v1_plain(csize_hw, tables, init_states, streams,
+                         t4_count: int, hrows: int, u16: bool = False,
+                         tlog: int = RANS_TABLELOG, u16x: bool = False,
+                         pair: bool = False):
+    """Plain PyTorch version of rans_decode's kernel (same inputs, outputs)."""
+    mode = _mode(u16, pair, False, u16x)
+    _check_decode(csize_hw, tables, init_states, streams, None, t4_count,
+                  hrows, tlog, mode)
+    out, res, cend = _decode_plain(tables, init_states, streams, t4_count,
+                                   tlog, mode, csize_hw=csize_hw)
+    return out, _err(res, cend != 0)
+
+
+def rans_decode(csize_hw, tables, init_states, streams, t4_count: int,
+                hrows: int, u16: bool = False, tlog: int = RANS_TABLELOG,
+                u16x: bool = False, pair: bool = False):
+    """v1 decode of G groups (frames with no section: ratio mode, v1 pair,
+    the U16 codec's ratio frames).  The rank and the cursor chain are both
+    computed in the kernel: the cursor starts at csize_hw and drops by each
+    step's total.
+
+    Inputs as rans_decode_v2 less steptots; modes byte, pair (u16=True,
+    pair=True), u16 and u16x.  Returns (out[G, t4_count*8, 128] i32,
+    err[G] i32, 0 = ok); err covers final states != 2^16 and a chain that
+    does not end at cursor 0."""
+    mode = _mode(u16, pair, False, u16x)
+    _check_decode(csize_hw, tables, init_states, streams, None, t4_count,
+                  hrows, tlog, mode)
+    if not _on_cuda(csize_hw, tables, init_states, streams):
+        out, res, cend = _decode_plain(tables, init_states, streams, t4_count,
+                                       tlog, mode, csize_hw=csize_hw)
+    else:
+        out, res, cend = _decode_flat_kernel(tables, init_states, streams,
+                                             csize_hw, None, t4_count, tlog,
+                                             mode)
+        launches[f"rans_decode:{mode}"] += 1
+    return out, _err(res, cend != 0)

@@ -13,22 +13,30 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# argument name -> rank, as the JAX wrappers (and the port's) take them.
-# tch = max(2^tlog / 128, 1); spc = steps per word: 4 byte, 2 pair, 1 quad;
-# t4 = supercycles, T = spc * t4 steps.
+# argument name -> the ranks it may have, as the JAX wrappers (and the
+# port's) take them.  tch = max(2^tlog / 128, 1); spc = steps per word: 4
+# byte, 2 pair / u16 / u16x, 1 quad; t4 = supercycles, T = spc * t4 steps.
 LAYOUTS = {
-    "fc_tables": 3,      # [G, 2, 128]  (cumul << 12) | freq, 256 symbols/ids
-    "magic_tables": 3,   # [G, 2, 128]  floor(2^32 / freq), clipped
-    "src_words": 3,      # [G, t4*8, 128]  4 bytes (byte), 2 u16 pair ids
-                         #   (pair) or 1 quad id (quad) per word
-    "csize_hw": 1,       # [G]  stream halfwords
-    "tables": 3,         # byte: [G, tch, 128]  (cumul << 20) | (freq << 8) | sym
-                         # pair, quad: [G, tch+2, 128]  (id << 2*tlog) |
-                         #   (freq << tlog) | (slot - cumul), then the
-                         #   256-entry id LUT (u16 pair / u32 quad values)
-    "init_states": 3,    # [G, 8, 128]  decoder initial states
-    "streams": 3,        # [G, srows, 128]  packed payload words
-    "steptots": 3,       # [G, T, 8]  per-step per-row renorm counts
+    "fc_tables": (3,),     # [G, nch, 128]  (cumul << 12) | freq: nch 2 (256
+                           #   symbols / ids), 8 (u16, 1024 symbols), or 32
+                           #   (u16x, 4096 symbols, (cumul << 14) | freq)
+    "magic_tables": (3,),  # [G, nch, 128]  floor(2^32 / freq), clipped
+    "src_words": (3,),     # [G, t4*8, 128]  4 bytes (byte), 2 u16 pair ids
+                           #   or u16 symbols (pair, u16, u16x) or 1 quad id
+                           #   (quad) per word
+    "csize_hw": (1,),      # [G]  stream halfwords
+    "tables": (3,),        # byte: [G, tch, 128]  (cumul << 20) | (freq << 8) | sym
+                           # pair, quad: [G, tch+2, 128]  (id << 2*tlog) |
+                           #   (freq << tlog) | (slot - cumul), then the
+                           #   256-entry id LUT (u16 pair / u32 quad values)
+                           # u16: [G, tch, 128]  (cumul << 21) | (freq << 10) | sym
+                           # u16x: [G, 2*tch, 128]  (freq << 13) | (slot -
+                           #   cumul), then the symbol of each slot
+    "init_states": (3,),   # [G, 8, 128]  decoder initial states
+    "streams": (3,),       # [G, srows, 128]  packed payload words
+    "steptots": (2, 3),    # [G, T, 8]  per-step per-row renorm counts
+                           #   (FLAG_STEPTOTS), or [G, T] per-step totals
+                           #   (FLAG_TOTALS)
 }
 
 
@@ -55,8 +63,8 @@ def to_tensors(device=None, **arrays) -> dict[str, torch.Tensor]:
             raise KeyError(f"unknown state array {name!r}; expected one of "
                            f"{sorted(LAYOUTS)}")
         a = np.asarray(a)
-        if a.ndim != LAYOUTS[name]:
-            raise ValueError(f"{name}: expected rank {LAYOUTS[name]}, "
+        if a.ndim not in LAYOUTS[name]:
+            raise ValueError(f"{name}: expected rank in {LAYOUTS[name]}, "
                              f"got shape {a.shape}")
         if a.dtype == np.uint32:
             a = a.view(np.int32)

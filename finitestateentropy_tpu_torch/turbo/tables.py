@@ -1,16 +1,19 @@
 """Pure-numpy helpers that live in jax-importing modules of the JAX package.
 
 Copies of finitestateentropy_tpu/turbo/rans_kernels.py:242-256 (stream
-words), :783-793 (_enc_chunking), :886-905 (byte-wire table packers),
-:932-976 (pair and quad decode tables) and :1182-1214 (the resident
-decoder's interleave pick, which the decode routing in api.py reads).  The
-tests hold each equal to its original.
+words), :783-793 (_enc_chunking), :886-929 (byte-wire and U16 table
+packers), :932-1007 (pair, quad and wide-U16 tables) and :1182-1214 (the
+resident decoder's interleave pick, which the decode routing in api.py
+reads).  The tests hold each equal to its original.  tch_of, the port's
+own, gives each mode's decode table height to the staging and the
+wrappers' shape checks.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .rans import RANS_TABLELOG, rans_decode_table, rans_freqs
+from .rans16 import rans16_decode_table
 
 
 def stream_word_rows(hrows: int) -> int:
@@ -45,6 +48,14 @@ def _enc_chunking(t4_count: int, spc: int) -> tuple[int, int]:
     return max_chunk, t4_count // max_chunk
 
 
+def tch_of(mode: str, tlog: int) -> int:
+    """Rows of 128 words in a decode table of a wire mode at tableLog tlog:
+    the 2^tlog entries (twice that for u16x's symbol plane), plus the two
+    rows of the 256-entry id LUT on the pair and quad wires."""
+    return (max((1 << tlog) // 128, 1) * (2 if mode == "u16x" else 1)
+            + (2 if mode in ("pair", "quad") else 0))
+
+
 def pack_rans_dtable(norm, tlog: int = RANS_TABLELOG) -> np.ndarray:
     """[tchunks,128] i32 decode table for the kernel."""
     t = rans_decode_table(norm, tlog)
@@ -65,6 +76,28 @@ def pack_rans_ctables(norm) -> tuple[np.ndarray, np.ndarray]:
     fc = ((c << 12) | f).astype(np.int32)
     magic = np.minimum(2**32 // f, 0xFFFFFFFF).astype(np.uint32).view(np.int32)
     return fc.reshape(2, 128), magic.reshape(2, 128)
+
+
+def pack_rans16_dtable(norm, tlog: int = RANS_TABLELOG) -> np.ndarray:
+    """[2^tlog/128,128] i32 u16 decode table ((cumul<<21)|(freq<<10)|sym)."""
+    t = rans16_decode_table(norm, tlog)
+    n = max(1 << tlog, 128)
+    out = np.zeros(n, np.int32)
+    out[: len(t)] = t
+    return out.reshape(n // 128, 128)
+
+
+def pack_rans16_ctables(norm) -> tuple[np.ndarray, np.ndarray]:
+    """((cumul<<12)|freq)[8,128], magic[8,128] — 1024-symbol encode tables."""
+    freq, cumul = rans_freqs(np.asarray(norm))
+    f = np.ones(1024, np.int64)
+    c = np.zeros(1024, np.int64)
+    f[: len(freq)] = freq
+    c[: len(cumul)] = cumul
+    f = np.maximum(f, 1)
+    fc = ((c << 12) | f).astype(np.int32)
+    magic = np.minimum(2**32 // f, 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    return fc.reshape(8, 128), magic.reshape(8, 128)
 
 
 def pack_pair_dtable(norm, pairs: np.ndarray,
@@ -114,6 +147,37 @@ def pack_quad_dtable(norm, quads: np.ndarray,
          lut.view(np.int32).reshape(2, 128)], axis=0)
 
 
+def pack_rans16x_dtable(norm, tlog: int) -> np.ndarray:
+    """[2*(2^tlog/128),128] i32 split decode table for symbols up to 4095:
+    rows [0, tch) hold e1 = (freq << 13) | (slot - cumul), rows [tch, 2tch)
+    the 12-bit symbol (the fields don't fit one 32-bit entry; alphabets
+    above 1023 also need tableLog 12-13, fseU16.c:43-48)."""
+    freq, cumul = rans_freqs(np.asarray(norm))
+    m = 1 << tlog
+    tch = m // 128
+    bounds = np.concatenate([cumul, [m]])
+    slots = np.arange(m)
+    sym = np.searchsorted(bounds, slots, side="right") - 1
+    j = slots - cumul[sym]
+    e1 = ((freq[sym] << 13) | j).astype(np.int32)
+    return np.concatenate(
+        [e1.reshape(tch, 128), sym.astype(np.int32).reshape(tch, 128)], axis=0)
+
+
+def pack_rans16x_ctables(norm) -> tuple[np.ndarray, np.ndarray]:
+    """((cumul<<14)|freq)[32,128], magic[32,128] — 4096-symbol encode
+    tables; 14-bit fields fit tableLog up to 13 (freq/cumul < 2^14)."""
+    freq, cumul = rans_freqs(np.asarray(norm))
+    f = np.ones(4096, np.int64)
+    c = np.zeros(4096, np.int64)
+    f[: len(freq)] = freq
+    c[: len(cumul)] = cumul
+    f = np.maximum(f, 1)
+    fc = ((c << 14) | f).astype(np.int32)
+    magic = np.minimum(2**32 // f, 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    return fc.reshape(32, 128), magic.reshape(32, 128)
+
+
 def _pick_nway(per_group_bytes: int, budget: int = (18 * 2**20 + 700 * 2**10)) -> int:
     """Widest interleave whose double-buffered blocks fit the JAX resident
     decoder's VMEM budget.  The GPU has no such budget; the port keeps the
@@ -124,15 +188,20 @@ def _pick_nway(per_group_bytes: int, budget: int = (18 * 2**20 + 700 * 2**10)) -
     return 1
 
 
-def v2_pick_nway(t4_count: int, hrows: int, tlog: int = RANS_TABLELOG) -> int:
-    """The interleave width the JAX rans_decode_v2 would pick for a
-    byte-wire shape: the routing between the rans_decode_v2 and
-    rans_decode_w entries compares it against the windowed kernel's
-    padding waste."""
-    T = t4_count * 4
+def v2_pick_nway(t4_count: int, hrows: int, tlog: int = RANS_TABLELOG,
+                 u16: bool = False, totals_only: bool = False,
+                 u16x: bool = False, pair: bool = False,
+                 quad: bool = False) -> int:
+    """The interleave width the JAX rans_decode_v2 would pick for this
+    shape: the routing between the rans_decode_v2 and rans_decode_w
+    entries (api._window_dispatch) compares it against the windowed
+    kernel's padding waste."""
+    spc = 1 if quad else 2 if u16 else 4
+    T = t4_count * spc
     rows_per = t4_count * 8 + 8
-    tch = max((1 << tlog) // 128, 1)
-    r8 = ((T + 127) // 128) * 8
+    tch = (max((1 << tlog) // 128, 1) * (2 if u16x else 1)
+           + (2 if pair or quad else 0))
+    r8 = 0 if totals_only else ((T + 127) // 128) * 8
     rc = ((t4_count + 7) // 8) * 8
     srows = stream_word_rows(hrows)
     per_group = (srows + rows_per + rc + r8 + tch + 8) * 512

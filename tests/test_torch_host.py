@@ -122,23 +122,29 @@ def test_routing_helpers_equal():
                 assert p_tables._enc_chunking(t4, spc) == want
     for per_group in (1, 10**5, 10**6, 1_400_000, 3 * 10**6, 10**7):
         assert j_kern._pick_nway(per_group) == p_tables._pick_nway(per_group)
+    # every wire (byte, pair, quad, u16, u16x) x section (rows, totals)
+    wires = [{}, dict(u16=True, pair=True), dict(quad=True), dict(u16=True),
+             dict(u16=True, u16x=True)]
+    routes = set()
     for t4 in (1, 3, 32, 64, 256, 512, 1024):
         for hrows in (24, 1040, 4112, 8208, 16400):
-            for tlog in (5, 10, 12):
-                assert (j_kern.v2_pick_nway(t4, hrows, tlog)
-                        == p_tables.v2_pick_nway(t4, hrows, tlog))
-                for G in (1, 3, 7, 8, 9, 64):
-                    for windows in (0, 1, 4):
-                        assert (j_api._window_dispatch(windows, t4, hrows, tlog, G, False)
-                                == p_api._window_dispatch(windows, t4, hrows, tlog, G))
-                        assert (j_api._window_dispatch(windows, t4, hrows, tlog, G,
-                                                       False, u16=True, pair=True)
-                                == p_api._window_dispatch(windows, t4, hrows, tlog, G,
-                                                          pair=True))
-                        assert (j_api._window_dispatch(windows, t4, hrows, tlog, G,
-                                                       False, quad=True)
-                                == p_api._window_dispatch(windows, t4, hrows, tlog, G,
-                                                          quad=True))
+            for tlog in (5, 10, 12, 13):
+                for wire in wires:
+                    for totals in (False, True):
+                        assert (j_kern.v2_pick_nway(t4, hrows, tlog,
+                                                    totals_only=totals, **wire)
+                                == p_tables.v2_pick_nway(t4, hrows, tlog,
+                                                         totals_only=totals, **wire))
+                        for G in (1, 3, 7, 8, 9, 64):
+                            for windows in (0, 1, 4, 8):
+                                want = j_api._window_dispatch(
+                                    windows, t4, hrows, tlog, G, totals, **wire)
+                                assert want == p_api._window_dispatch(
+                                    windows, t4, hrows, tlog, G, totals, **wire)
+                                routes.add((tuple(wire), totals, windows,
+                                            bool(want[0])))
+    # both entries are reached by every wire at every windows setting but 1
+    assert len(routes) == 5 * 2 * (3 * 2 + 1)
     for n in (1, 4096, 4097, 40960, 1 << 20, (1 << 20) + 1):
         assert j_api._hrows_cap(n) == p_api._hrows_cap(n)
         assert j_format._pad_n(n) == p_format._pad_n(n)
@@ -261,3 +267,101 @@ def test_wire_pick_equal(name):
                     == j_api._wire_ests(part, prep, 10, *args))
     if name == "p80_1MiB":
         assert p_api._pick_wire(d, prep, 10, pp, qp, -1, -1) == "quad"
+
+
+def _u16_symbols(alphabet: str, n: int, seed: int = 1) -> np.ndarray:
+    """The JAX package's U16 corpora (tests/test_turbo.py:287, :386)."""
+    rng = np.random.default_rng(seed)
+    if alphabet == "u16":
+        s = np.clip((rng.pareto(1.2, n) * 50).astype(np.int64), 0, 1023)
+    else:
+        s = np.clip((rng.pareto(1.0, n) * 300).astype(np.int64), 0, 4095)
+    return s.astype(np.uint16)
+
+
+@pytest.mark.parametrize("alphabet", ["u16", "u16x"])
+def test_rans16_copy_equal(alphabet):
+    """The whole of turbo/rans16.py: the twin in both modes, the parser
+    and the decode table."""
+    for n in (20000, 3000):
+        s = _u16_symbols(alphabet, n)
+        for steptots in (True, False):
+            blob = j_rans16.rans16_compress(s, steptots)
+            assert p_rans16.rans16_compress(s, steptots) == blob
+            assert _equal(p_rans16.parse_rans16_group(blob),
+                          j_rans16.parse_rans16_group(blob))
+            assert np.array_equal(p_rans16.rans16_decompress(blob), s)
+            g = j_rans16.parse_rans16_group(blob)[0]
+            if g[4] is not None:
+                assert np.array_equal(p_rans16.rans16_decode_table(g[4], g[2]),
+                                      j_rans16.rans16_decode_table(g[4], g[2]))
+    for name in ("RANS16_MAGIC", "RANS16_MAX_SYMBOL", "RANS16_KERNEL_MAX_PACKED",
+                 "FLAG_RAW", "FLAG_RLE", "FLAG_STEPTOTS"):
+        assert getattr(p_rans16, name) == getattr(j_rans16, name)
+    assert p_rans16._HDR.format == j_rans16._HDR.format
+
+
+@pytest.mark.parametrize("alphabet", ["u16", "u16x"])
+def test_u16_table_packers_equal(alphabet):
+    s = _u16_symbols(alphabet, 50000)
+    max_sv = int(s.max())
+    count = np.bincount(s, minlength=max_sv + 1)
+    for req in ((9, 10, 11) if alphabet == "u16" else (12, 13)):
+        tlog = max(req, j_norm.fse_min_table_log(len(s), max_sv))
+        norm, tlog = j_norm.fse_normalize_count(tlog, count, len(s), max_sv,
+                                                max_table_log=13)
+        if alphabet == "u16":
+            assert np.array_equal(p_tables.pack_rans16_dtable(norm, tlog),
+                                  j_kern.pack_rans16_dtable(norm, tlog))
+            pf, pm = p_tables.pack_rans16_ctables(norm)
+            jf, jm = j_kern.pack_rans16_ctables(norm)
+        else:
+            assert np.array_equal(p_tables.pack_rans16x_dtable(norm, tlog),
+                                  j_kern.pack_rans16x_dtable(norm, tlog))
+            pf, pm = p_tables.pack_rans16x_ctables(norm)
+            jf, jm = j_kern.pack_rans16x_ctables(norm)
+        assert np.array_equal(pf, jf) and np.array_equal(pm, jm)
+
+
+@pytest.mark.parametrize("mode", ["byte", "pair", "quad", "u16", "u16x"])
+def test_decode_table_height(mode):
+    """tch_of, which the staging and the wrappers' shape checks read, is the
+    height of the JAX package's decode table of each mode."""
+    ids = np.arange(4)
+    for tlog in {"u16": (5, 9, 11), "u16x": (12, 13)}.get(mode, (5, 9, 11, 12)):
+        norm = np.full(4, 1 << (tlog - 2))
+        tbl = {"byte": lambda: j_kern.pack_rans_dtable(norm, tlog),
+               "pair": lambda: j_kern.pack_pair_dtable(norm, ids, tlog),
+               "quad": lambda: j_kern.pack_quad_dtable(norm, ids, tlog),
+               "u16": lambda: j_kern.pack_rans16_dtable(norm, tlog),
+               "u16x": lambda: j_kern.pack_rans16x_dtable(norm, tlog)}[mode]()
+        assert tbl.shape == (p_tables.tch_of(mode, tlog), 128)
+
+
+def test_normalize_and_ncount_at_u16_widths():
+    """The U16 codec's host math: tableLog up to 13 (max_table_log /
+    max_allowed = 13) and NCount headers of alphabets up to 4095 symbols,
+    equal in both packages."""
+    for alphabet, n in (("u16", 50000), ("u16x", 50000), ("u16x", 1500)):
+        s = _u16_symbols(alphabet, n)
+        max_sv = int(s.max())
+        count = np.bincount(s, minlength=max_sv + 1)
+        for req in (11, 12, 13):
+            opt = j_norm.fse_optimal_table_log(req, n, max_sv, max_allowed=13)
+            assert opt == p_norm.fse_optimal_table_log(req, n, max_sv,
+                                                       max_allowed=13)
+            jn = j_norm.fse_normalize_count(opt, count, n, max_sv,
+                                            max_table_log=13)
+            assert jn == p_norm.fse_normalize_count(opt, count, n, max_sv,
+                                                    max_table_log=13)
+            nc = j_ncount.fse_write_ncount(jn[0], max_sv, jn[1])
+            assert nc == p_ncount.fse_write_ncount(jn[0], max_sv, jn[1])
+            assert (j_ncount.fse_read_ncount(nc + b"\0" * 8, 4095)
+                    == p_ncount.fse_read_ncount(nc + b"\0" * 8, 4095))
+    wide = np.ones(4096, np.int64)              # all 4096 symbols present
+    jn = j_norm.fse_normalize_count(13, wide, 4096, 4095, max_table_log=13)
+    assert jn == p_norm.fse_normalize_count(13, wide, 4096, 4095, max_table_log=13)
+    assert jn[1] == 13
+    nc = p_ncount.fse_write_ncount(jn[0], 4095, 13)
+    assert nc == j_ncount.fse_write_ncount(jn[0], 4095, 13)
+    assert p_ncount.fse_read_ncount(nc + b"\0" * 8, 4095)[1] == 4095

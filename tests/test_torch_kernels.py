@@ -49,8 +49,9 @@ def _decode_batch(blobs):
     """Port-staged decode inputs for twin frames of one padded size."""
     groups = [parse_rans_group(b)[0] for b in blobs]
     n_pad = _pad_n(groups[0][0])
+    kind = groups[0][8].ndim                  # 2 rows wire, 1 totals wire
     cs, tbl, init, hws, tots, t4, hrows = stage_decode_batch(
-        groups, list(range(len(groups))), n_pad, groups[0][2])
+        groups, list(range(len(groups))), n_pad, groups[0][2], "byte", kind)
     return (dict(csize_hw=cs, tables=tbl, init_states=init, streams=hws,
                  steptots=tots), t4, hrows, groups[0][2])
 
@@ -224,9 +225,9 @@ def _mode_batches(data, group, **flags):
     groups = parse_groups(turbo_compress_device(data, group, device="cpu",
                                                 **flags))
     dec = {}
-    for (wire, n_pad, tlog), idxs in plan_decode(groups)[1].items():
+    for (wire, n_pad, tlog, kind), idxs in plan_decode(groups)[1].items():
         cs, tbl, init, hws, tots, t4, hrows = stage_decode_batch(
-            groups, idxs, n_pad, tlog, wire)
+            groups, idxs, n_pad, tlog, wire, kind)
         dec.setdefault(wire, (dict(csize_hw=cs, tables=tbl, init_states=init,
                                    streams=hws, steptots=tots), t4, hrows,
                               tlog))
@@ -425,3 +426,275 @@ def test_cuda_quad_odd_T_matches_plain(cuda):
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert got[1].tolist() == [0]
+
+
+# ---------------------------------------------------------------------------
+# The flat-rank decode (v1 and totals wires) and the U16 modes
+# ---------------------------------------------------------------------------
+
+
+def _flat_reference(x, tbl, hw, cursor, tlog, mode):
+    """One flat-rank decode step in Python ints (u32 semantics): the rank
+    runs over all 1024 lanes.  Returns (values, step total)."""
+    out, flags = [], []
+    mask = (1 << tlog) - 1
+    plane = max(1 << tlog, 128)
+    for k in range(1024):
+        slot = x[k] & mask
+        e = tbl[slot]
+        if mode == "byte":
+            out.append(e & 0xFF)
+            x[k] = ((e >> 8) & 0xFFF) * (x[k] >> tlog) + slot - (e >> 20)
+        elif mode == "u16":
+            out.append(e & 0x3FF)
+            x[k] = ((e >> 10) & 0x7FF) * (x[k] >> tlog) + slot - (e >> 21)
+        else:                                     # u16x
+            out.append(tbl[plane + slot])
+            x[k] = (e >> 13) * (x[k] >> tlog) + (e & 0x1FFF)
+        x[k] &= 0xFFFFFFFF
+        flags.append(x[k] < 1 << 16)
+    rank = 0
+    for k in range(1024):
+        if flags[k]:
+            rank += 1
+            pos = min(max(cursor - rank, 0), len(hw) - 1)
+            x[k] = ((x[k] << 16) | hw[pos]) & 0xFFFFFFFF
+    return out, rank
+
+
+@pytest.mark.parametrize("entry,mode", [("rans_decode", "byte"),
+                                        ("rans_decode", "u16"),
+                                        ("rans_decode", "u16x"),
+                                        ("rans_decode_v2", "byte")])
+def test_flat_decode_steps_from_states_above_2_31(entry, mode):
+    """Four steps of the flat-rank decode (v1: the cursor chain from csize;
+    rans_decode_v2 with [G,T] totals: shipped cursors) against Python ints,
+    from random states >= 2^31, in the byte, u16 and u16x table modes."""
+    from finitestateentropy_tpu_torch.turbo.tables import (pack_rans16_dtable,
+                                                           pack_rans16x_dtable,
+                                                           pack_rans_dtable)
+
+    rng = np.random.default_rng(41)
+    norm = np.array([600, 300, 100, -1, 23], np.int32)
+    tlog, spc = (12, 2) if mode == "u16x" else (10, rk.SPC[mode])
+    if mode == "u16x":          # symbols past 1023 need the split table
+        norm = np.zeros(1500, np.int32)
+        norm[[0, 7, 1030, 1499]] = [3000, 1000, 95, 1]
+        tbl = pack_rans16x_dtable(norm, tlog)
+    else:
+        tbl = (pack_rans_dtable if mode == "byte" else pack_rans16_dtable)(norm, tlog)
+    init = rng.integers(1 << 31, 1 << 32, 1024, dtype=np.uint64).astype(np.uint32)
+    streams = rng.integers(-2**31, 2**31, (1, 24, 128), dtype=np.int64).astype(np.int32)
+    csize = np.array([3000], np.int32)
+    totals = rng.integers(0, 300, (1, 4)).astype(np.int32)
+    ins = to_tensors("cpu", csize_hw=csize, tables=tbl[None],
+                     init_states=init.reshape(1, 8, 128), streams=streams,
+                     steptots=totals)
+    args = (ins["csize_hw"], ins["tables"], ins["init_states"], ins["streams"])
+    u16 = dict(u16=mode != "byte", u16x=mode == "u16x")
+    if entry == "rans_decode":
+        out, err = rk.rans_decode(*args, 4 // spc, 24, tlog=tlog, **u16)
+    else:
+        out, err = rk.rans_decode_v2(*args, ins["steptots"], 1, 24, tlog)
+    x = [int(v) for v in init]
+    t_u32 = [int(v) for v in tbl.reshape(-1).view(np.uint32)]
+    hw = [int(v) for v in streams.reshape(-1).view(np.uint16)]
+    cursor, vals = int(csize[0]), []
+    for t in range(4):
+        if entry == "rans_decode_v2":
+            cursor = int(csize[0]) - int(totals[0, :t].sum())
+        step, total = _flat_reference(x, t_u32, hw, cursor, tlog, mode)
+        vals.append(step)
+        cursor -= total
+    bits = 32 // spc
+    want = [sum(vals[spc * t4 + p][k] << (bits * p) for p in range(spc))
+            for t4 in range(4 // spc) for k in range(1024)]
+    assert out[0].numpy().reshape(-1).view(np.uint32).tolist() == want
+    assert err.tolist() == [1]     # random streams never end well-formed
+
+
+def test_plain_v1_and_totals_decode_match_jax_interpret():
+    """Interpret-mode JAX rans_decode (v1 byte) and rans_decode_v2 with
+    [G,T] totals (_rans_decode_v2t_kernel) against the port's entries on
+    the same two groups, one corrupted in its payload: the clean group's
+    output and err != 0 agree."""
+    import jax.numpy as jnp
+
+    from finitestateentropy_tpu.turbo.rans import rans_compress as j_compress
+    from finitestateentropy_tpu.turbo.rans_kernels import (
+        rans_decode as j_v1, rans_decode_v2 as j_v2)
+
+    datas = [generate_proba(80, 40960), generate_proba(14, 40960)]
+    for kw, kind in ((dict(steptots=False), 0), (dict(totals_only=True), 1)):
+        groups = [parse_rans_group(j_compress(d, **kw))[0] for d in datas]
+        assert (groups[0][6] >= 1 << 31).any()
+        cs, tbl, init, hws, tots, t4, hrows = stage_decode_batch(
+            groups, [0, 1], 40960, groups[0][2], "byte", kind)
+        hws[1, 3, 5] ^= 0x40000                  # corrupt group 1
+        j_in = [jnp.asarray(a) for a in (cs, tbl, init, hws)]
+        ins = to_tensors("cpu", csize_hw=cs, tables=tbl, init_states=init,
+                         streams=hws)
+        args = (ins["csize_hw"], ins["tables"], ins["init_states"],
+                ins["streams"])
+        if kind == 0:
+            j_out, j_err = j_v1(*j_in, t4, hrows, True, False, groups[0][2])
+            out, err = rk.rans_decode(*args, t4, hrows, tlog=groups[0][2])
+        else:
+            j_out, j_err = j_v2(*j_in, jnp.asarray(tots), t4, hrows, True,
+                                groups[0][2])
+            steptots = to_tensors("cpu", steptots=tots)["steptots"]
+            out, err = rk.rans_decode_v2(*args, steptots, t4, hrows,
+                                         groups[0][2])
+        assert (np.asarray(j_err) != 0).tolist() == (err.numpy() != 0).tolist() \
+            == [False, True]
+        assert np.array_equal(out[0].numpy(), np.asarray(j_out)[0])
+        assert out[0].numpy().tobytes() == datas[0]
+
+
+def test_decode_mode_rules():
+    arrays, t4, hrows, tlog = _decode_batch([rans_compress(generate_proba(80, 40960))])
+    ins = to_tensors("cpu", **arrays)
+    tots = ins["steptots"].sum(dim=2).to(torch.int32)
+    with pytest.raises(ValueError, match="byte-only"):
+        rk.rans_decode_v2(ins["csize_hw"], ins["tables"], ins["init_states"],
+                          ins["streams"], tots, t4 * 2, hrows, tlog, u16=True)
+    with pytest.raises(ValueError, match="tableLog"):
+        rk.rans_decode(*list(ins.values())[:4], t4, hrows, tlog=13)
+
+
+def _v1_batch(mode, n=262144):
+    """3-group v1 decode arrays of each mode, from the port's numpy twins."""
+    from finitestateentropy_tpu_torch.turbo.api import (parse_groups16,
+                                                        plan_decode16,
+                                                        stage_decode16_batch)
+    from finitestateentropy_tpu_torch.turbo.pair import pair_compress
+    from finitestateentropy_tpu_torch.turbo.rans16 import rans16_compress
+
+    if mode in ("u16", "u16x"):
+        rng = np.random.default_rng(3)
+        hi, scale, a = (1023, 50, 1.2) if mode == "u16" else (4095, 300, 1.0)
+        syms = [np.clip((rng.pareto(a, n // 2) * scale).astype(np.int64), 0,
+                        hi).astype(np.uint16) for _ in range(3)]
+        groups = parse_groups16(b"".join(rans16_compress(s, False) for s in syms))
+        ((n_pad, tlog, _tots, big), idxs), = plan_decode16(groups)[1].items()
+        cs, tbl, init, hws, _t, t4, hrows = stage_decode16_batch(
+            groups, idxs, n_pad, tlog, False, big)
+    else:
+        twin = pair_compress if mode == "pair" else rans_compress
+        datas = [generate_proba(p, n) for p in (80, 50, 90)]   # pair-eligible
+        groups = parse_groups(b"".join(twin(d, steptots=False) for d in datas))
+        ((wire, n_pad, tlog, kind), idxs), = plan_decode(groups)[1].items()
+        assert (wire, kind) == (mode, 0)
+        cs, tbl, init, hws, _t, t4, hrows = stage_decode_batch(
+            groups, idxs, n_pad, tlog, wire, kind)
+    return (dict(csize_hw=cs, tables=tbl, init_states=init, streams=hws), t4,
+            hrows, tlog)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["byte", "pair", "u16", "u16x"])
+def test_cuda_v1_decode_matches_plain(cuda, mode):
+    arrays, t4, hrows, tlog = _v1_batch(mode)
+    arrays["streams"][2, 1, 7] ^= 0x100          # corrupt the last group
+    ins = to_tensors(cuda, **arrays)
+    flags = dict(u16=mode != "byte", pair=mode == "pair", u16x=mode == "u16x")
+    before = rk.launches[f"rans_decode:{mode}"]
+    out, err = rk.rans_decode(*ins.values(), t4, hrows, tlog=tlog, **flags)
+    torch.cuda.synchronize()
+    assert rk.launches[f"rans_decode:{mode}"] == before + 1
+    p_out, p_err = rk.rans_decode_v1_plain(*ins.values(), t4, hrows,
+                                           tlog=tlog, **flags)
+    assert torch.equal(out, p_out) and torch.equal(err, p_err)
+    assert err.tolist() == [0, 0, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["rans_decode_v2", "rans_decode_w"])
+def test_cuda_totals_decode_matches_plain(cuda, entry):
+    datas = [generate_proba(p, 262144) for p in (80, 14, 2)]
+    arrays, t4, hrows, tlog = _decode_batch(
+        [rans_compress(d, totals_only=True) for d in datas])
+    assert arrays["steptots"].ndim == 2
+    arrays["streams"][2, 1, 7] ^= 0x100          # corrupt the last group
+    ins = to_tensors(cuda, **arrays)
+    args = (*ins.values(), t4, hrows)
+    before = rk.launches[f"{entry}:totals"]
+    if entry == "rans_decode_w":
+        out, err = rk.rans_decode_w(*args, 8, tlog, 64)
+    else:
+        out, err = rk.rans_decode_v2(*args, tlog)
+    torch.cuda.synchronize()
+    assert rk.launches[f"{entry}:totals"] == before + 1
+    p_out, p_err = rk.rans_decode_plain(*args, tlog)
+    assert torch.equal(out, p_out) and torch.equal(err, p_err)
+    assert err.tolist() == [0, 0, 1]
+
+
+def _u16_batches(alphabet, n=1 << 18, G=3):
+    """rans_encode inputs and rows-wire decode arrays of G U16 groups."""
+    from finitestateentropy_tpu_torch.turbo.api import (
+        parse_groups16, plan_decode16, plan_encode16, stage_decode16_batch,
+        stage_encode16_batch)
+    from finitestateentropy_tpu_torch.turbo.rans16 import rans16_compress
+
+    rng = np.random.default_rng(8)
+    hi, scale, a = (1023, 50, 1.2) if alphabet == "u16" else (4095, 300, 1.0)
+    s = np.clip((rng.pareto(a, G * n) * scale).astype(np.int64), 0,
+                hi).astype(np.uint16)
+    _c, _f, batches = plan_encode16(s, n, True)
+    ((n_pad, big, tlog), items), = batches.items()
+    fc, mg, srcw = stage_encode16_batch(items, n_pad, big)
+    enc = (fc, mg, srcw, n_pad // 2048, (n_pad // 128 + 16 + 7) // 8 * 8, tlog)
+    groups = parse_groups16(b"".join(rans16_compress(s[i:i + n])
+                                     for i in range(0, len(s), n)))
+    ((n_pad, tlog, _tots, big), idxs), = plan_decode16(groups)[1].items()
+    cs, tbl, init, hws, tots, t2, hrows = stage_decode16_batch(
+        groups, idxs, n_pad, tlog, True, big)
+    dec = (dict(csize_hw=cs, tables=tbl, init_states=init, streams=hws,
+                steptots=tots), t2, hrows, tlog)
+    return enc, dec
+
+
+def test_u16_batches_cover_both_alphabets():
+    """The CPU half of the U16 GPU tests below: their batches have the
+    8- and 32-chunk tables and tableLog 11 and 13."""
+    for alphabet, nch, tl in (("u16", 8, 11), ("u16x", 32, 13)):
+        enc, dec = _u16_batches(alphabet, 16384, 2)
+        assert enc[0].shape == (2, nch, 128) and enc[5] == dec[3] == tl
+        assert dec[0]["tables"].shape[1] == (1 << tl) // 128 * (1 if nch == 8 else 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alphabet", ["u16", "u16x"])
+def test_cuda_encode16_matches_plain(cuda, alphabet):
+    (fc, mg, srcw, t2, hcap, tlog), _dec = _u16_batches(alphabet)
+    ins = to_tensors(cuda, fc_tables=fc, magic_tables=mg, src_words=srcw)
+    args = (*ins.values(), t2, hcap, True, tlog)
+    before = rk.launches[f"rans_encode:{alphabet}"]
+    got = rk.rans_encode(*args)
+    torch.cuda.synchronize()
+    assert rk.launches[f"rans_encode:{alphabet}"] == before + 1
+    for g, w in zip(got, rk.rans_encode_plain(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["rans_decode_v2", "rans_decode_w"])
+@pytest.mark.parametrize("alphabet", ["u16", "u16x"])
+def test_cuda_u16_decode_matches_plain(cuda, alphabet, entry):
+    _enc, (arrays, t2, hrows, tlog) = _u16_batches(alphabet)
+    arrays["streams"][2, 1, 7] ^= 0x100          # corrupt the last group
+    ins = to_tensors(cuda, **arrays)
+    args = (*ins.values(), t2, hrows)
+    flags = dict(u16=True, u16x=alphabet == "u16x")
+    key = f"{entry}:{alphabet}"
+    before = rk.launches[key]
+    if entry == "rans_decode_w":
+        out, err = rk.rans_decode_w(*args, 8, tlog, 64, **flags)
+    else:
+        out, err = rk.rans_decode_v2(*args, tlog, **flags)
+    torch.cuda.synchronize()
+    assert rk.launches[key] == before + 1
+    p_out, p_err = rk.rans_decode_plain(*args, tlog, **flags)
+    assert torch.equal(out, p_out) and torch.equal(err, p_err)
+    assert err.tolist() == [0, 0, 1]

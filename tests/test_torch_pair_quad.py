@@ -262,7 +262,7 @@ def test_quad_odd_step_counts(n):
     g = parse_groups(port)[0]
     assert g[3] & FLAG_QUAD and g[8].shape[0] % 2 == 1
     _pieces, batches = plan_decode([g])
-    assert list(batches) == [("quad", _wire_pad("quad", n), g[2])]
+    assert list(batches) == [("quad", _wire_pad("quad", n), g[2], 2)]
     assert decompress(port) == data
 
 
