@@ -11,14 +11,17 @@ Phases, one result line each:
      process per source, started together);
   3. every kernel entry in every mode against its plain PyTorch version on
      the GPU, bit for bit, on 3-group batches (1 MiB groups; 512 Ki-symbol
-     U16 groups): the encodes (rans_encode2 byte / pair / quad, rans_encode
-     u16 / u16x), and each decode entry (rans_decode_v2 and rans_decode_w on
-     the rows and totals wires, rans_decode on v1 frames) with group 1
-     corrupted (its err must be set, the others' not);
-  4. twelve paths through the entry points (turbo_compress_device /
-     turbo_decompress_device, turbo16_compress_device /
-     turbo16_decompress_device), each with the launch counts set to 0 just
-     before it and read just after:
+     U16 groups): the encodes (rans_encode2 byte / pair / quad in the
+     row-local placement, rans_encode2_flat byte with and without step
+     counts, u16 and u16x in the flat placement, rans_encode byte / u16 /
+     u16x), and each decode entry (rans_decode_v2 and rans_decode_w on the
+     rows and totals wires, rans_decode on v1 frames, turbo_fse_decode on
+     v0 frames) with group 1 corrupted (its err must be set, the others'
+     not);
+  4. sixteen paths, each with the launch counts set to 0 just before it
+     and read just after; twelve through the entry points
+     (turbo_compress_device / turbo_decompress_device,
+     turbo16_compress_device / turbo16_decompress_device):
        default_p80_64MiB  default flags, 64 MiB of Proba80 in 1 MiB groups:
                           the main path; every group is quad @ 10, so one
                           quad encode and one quad rans_decode_w launch;
@@ -49,14 +52,36 @@ Phases, one result line each:
                           rans_decode_v2, and at windows=8: rans_decode_w)
                           and ratio frames (rans_decode);
        u16x_pareto_16MiB  the same on 8 Mi symbols <= 4095 (pareto(1.0)),
-                          16 groups at tableLog 13, the split u16x tables.
+                          16 groups at tableLog 13, the split u16x tables;
+       mesh_p80_64MiB     the entry points over a mesh of the visible GPUs
+                          (make_mesh(); one on a one-card machine, which
+                          still runs the sharded steps) in speed (byte wire)
+                          and ratio mode: the sharded_turbo_encode_v2 /
+                          sharded_turbo_encode and sharded_turbo_decode_v2 /
+                          sharded_turbo_decode steps, one flat byte encode
+                          and one decode per mode and shard; the frames must
+                          equal the single-device ones;
+     and four more:
+       mesh_u16_pareto    sharded_turbo16_roundtrip over the mesh on the u16
+                          path's 64 groups: the flat u16 encode and v2:u16;
+       dryrun_multichip   parallel/dryrun.py over the mesh's devices: every
+                          sharded round trip on 8-128 KiB groups, and a
+                          mixed frame through the entry points with mesh set;
+       v0_p80_16MiB       the v0 TurboFSE codec: 16 x 1 MiB of Proba80
+                          compressed by the numpy twin on the host, then one
+                          turbo_fse_decode launch, which must give the input
+                          back, as must turbo_fse_decompress.
      Every round trip gives back its input and every frame equals the
      port's numpy twin of the wire and mode its group was coded in
      (quad_compress, pair_compress, rans_compress, rans16_compress);
   5. every batch of each path, planned and staged as the entry points do
-     it, through the wrappers on the GPU against the plain versions (err
-     included); the batches per entry and mode equal the path's launches,
-     and every entry and mode is launched by some path;
+     it (the dry run's on its own inputs and shapes), through the wrappers
+     on the GPU against the plain versions (err included); the batches per
+     entry and mode (times the shards of the mesh each runs on) equal the
+     path's launches, and every entry and mode is launched by
+     some path but two, which no path of the JAX package runs either
+     (rans_encode:byte, rans_encode2_flat:u16x): those are checked at the
+     shapes of the byte and u16x paths;
   6. end-to-end GB/s of the default-flag path (and of the byte wire), the
      entry points' own stage seconds on the default-flag path, per-step
      chain latencies (csrc/chain_probe.cu) and per-kernel-and-mode times
@@ -107,14 +132,23 @@ INT32_LANES = 132 * 64         # H100 SXM: 132 SMs x 64 INT32 units (Hopper whit
 # does, with the warp's offset in the row offset's place, and adds per lane
 # the cursor's update (v1) or load (totals) 1; the prefix of the 32 warp
 # counts is 31 adds once per group-step, however many warps repeat it.
+# The v0 TurboFSE decode: slot mask 1, table read 1, symbol field 1 and
+# into the output word 2, nb field 2, base field 1, the lane's prefix add
+# 1, field start 1, word index 1, two stream reads 2, shift amount 1, the
+# 64-bit funnel shift 2, the nb-bit mask 2 and its and 1, new state 1; the
+# prefix of the 32 warp totals is 31 adds per group-step, as above.
 ENC_OPS_PER_STEP = {"byte": 25, "pair": 25, "quad": 24, "u16": 25, "u16x": 25}
 DEC_OPS_PER_STEP = {"byte": 20, "pair": 20, "quad": 18, "u16": 20, "u16x": 19}
+V0_OPS_PER_STEP = 20
 FLAT_LANE_OPS = 1
 FLAT_SCAN_ADDS = 31
-KERNEL_LINE = {  # entry -> (TPU kernel line in finitestateentropy_tpu/turbo/rans_kernels.py)
-    "rans_encode2": "607", "rans_encode": "303", "rans_decode": "182",
-    "rans_decode_v2": "1019", "rans_decode_v2:totals": "1113",
-    "rans_decode_w": "1322"}
+V0_MIB = 16                    # the v0 path: its only encoder is the numpy twin
+KERNEL_LINE = {  # entry -> TPU kernel, file:line in finitestateentropy_tpu/turbo/
+    "rans_encode2": "rans_kernels.py:607", "rans_encode2_flat": "rans_kernels.py:473",
+    "rans_encode": "rans_kernels.py:303", "rans_decode": "rans_kernels.py:182",
+    "rans_decode_v2": "rans_kernels.py:1019",
+    "rans_decode_v2:totals": "rans_kernels.py:1113",
+    "rans_decode_w": "rans_kernels.py:1322", "turbo_fse_decode": "kernels.py:59"}
 
 
 def require(cond: bool, what: str) -> None:
@@ -154,6 +188,8 @@ def source_of(key: str) -> str:
     entry, mode = key.split(":")
     if entry.startswith("rans_encode"):
         name = "rans_encode.cu"
+    elif entry == "turbo_fse_decode":
+        name = "turbo_fse_decode.cu"
     elif entry == "rans_decode" or mode == "totals":
         name = "rans_decode_flat.cu"
     else:
@@ -163,8 +199,7 @@ def source_of(key: str) -> str:
 
 def replaces(key: str) -> str:
     entry = key.split(":")[0]
-    return ("finitestateentropy_tpu/turbo/rans_kernels.py:"
-            + KERNEL_LINE.get(key, KERNEL_LINE[entry]))
+    return "finitestateentropy_tpu/turbo/" + KERNEL_LINE.get(key, KERNEL_LINE[entry])
 
 
 def pair_escape_corpus(n: int, seed: int = 3) -> bytes:
@@ -227,6 +262,21 @@ def chain_step_ns() -> dict:
     return res
 
 
+def dryrun_launches(m: int) -> dict:
+    """Launches of dryrun_multichip(m) on m CUDA devices: one per shard of
+    each sharded round trip (the windowed one runs on min(m, 2) devices);
+    then the mixed frame, whose two coded 16 KiB groups of Proba80 go pair
+    at default flags: a pair encode per shard for the mesh compress (mesh=1
+    is single-device: one), one for the single-device compress, and a pair
+    decode per shard."""
+    return {"rans_encode2_flat:byte": 2 * m, "rans_decode:byte": m,
+            "rans_decode_v2:byte": m, "rans_encode2:byte": min(m, 2),
+            "rans_decode_w:byte": min(m, 2), "rans_encode2_flat:u16": m,
+            "rans_decode_v2:u16": m, "rans_encode2:pair": m + m + 1,
+            "rans_decode_v2:pair": m + m, "rans_encode2:quad": m,
+            "rans_decode_v2:quad": m}
+
+
 def bound(nbytes: int, ops: int, steps: int, step_ns: float,
           clock_hz: float) -> dict:
     """The least time the card could take: the largest of the bytes over
@@ -259,14 +309,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from finitestateentropy_tpu_torch.parallel import dryrun as dr
+    from finitestateentropy_tpu_torch.parallel.mesh import make_mesh
+    from finitestateentropy_tpu_torch.parallel.turbo_dp import sharded_turbo16_roundtrip
     from finitestateentropy_tpu_torch.turbo import api
+    from finitestateentropy_tpu_torch.turbo import kernels as v0
     from finitestateentropy_tpu_torch.turbo import rans_kernels as rk
     from finitestateentropy_tpu_torch.turbo._build import build_all
+    from finitestateentropy_tpu_torch.turbo.format import (parse_group,
+                                                           turbo_fse_compress,
+                                                           turbo_fse_decompress)
     from finitestateentropy_tpu_torch.turbo.pair import pair_compress
     from finitestateentropy_tpu_torch.turbo.quad import quad_compress
     from finitestateentropy_tpu_torch.turbo.rans import rans_compress
     from finitestateentropy_tpu_torch.turbo.rans16 import rans16_compress
     from finitestateentropy_tpu_torch.turbo.state import to_tensors
+    from finitestateentropy_tpu_torch.turbo.tables import pack_rans16_dtable
     from finitestateentropy_tpu_torch.utils import generate_proba
 
     def compress(p: Piece) -> bytes:
@@ -278,7 +336,8 @@ def main() -> int:
     def decompress(p: Piece, blob: bytes, windows: int):
         if p.codec == "turbo16":
             return api.turbo16_decompress_device(blob, windows, device=DEV)
-        return api.turbo_decompress_device(blob, windows=windows, device=DEV)
+        return api.turbo_decompress_device(blob, p.flags.get("mesh", 0),
+                                           windows, device=DEV)
 
     def same(p: Piece, back) -> bool:
         return (np.array_equal(back, p.data) if p.codec == "turbo16"
@@ -296,61 +355,85 @@ def main() -> int:
                       "built": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
                                 for k, v in built.items()}}), flush=True)
 
-    def encode_batches(p: Piece) -> list[dict]:
+    def encode_batches(p: Piece, entry: str | None = None) -> list[dict]:
         """Every encode batch of p, planned and staged as the compress
         entry point does it: {key, run (the wrapper), plain, kernel (the
-        bare launch), G, steps, ops, nbytes(kernel output), chain}."""
+        bare launch), G, steps, ops, nbytes(kernel output), chain,
+        shards}.  Placement and steptots are the compress entry point's
+        (api.encode_placement); under a mesh (flags["mesh"]) a batch
+        launches once per shard.  entry "rans_encode" puts byte batches
+        through the v1 encode instead, "rans_encode2_flat" U16 batches
+        through the flat packed encode."""
         out = []
+        st = p.flags.get("steptots", True)
         if p.codec == "turbo":
             f = p.flags
+            mesh = f.get("mesh")
             tlog0, pair, quad = api.mode_flags(
-                f.get("table_log", 0), f.get("steptots", True),
-                f.get("totals_only", False), f.get("pair", -1), f.get("quad", -1))
+                f.get("table_log", 0), st, f.get("totals_only", False),
+                f.get("pair", -1), f.get("quad", -1))
             _n, _f, batches = api.plan_encode(p.data, p.group, tlog0, pair, quad)
             for (wire, n_pad, tlog), items in batches.items():
                 fc, mg, srcw = api.STAGE_BATCH[wire](items, n_pad)
                 ins = to_tensors(DEV, fc_tables=fc, magic_tables=mg, src_words=srcw)
-                t4 = api._wire_t4(wire, n_pad)
-                args = (*ins.values(), t4, api._hrows_cap(n_pad), tlog)
-                mf = dict(u16=wire == "pair", quad=wire == "quad")
-                out.append(dict(
-                    key=f"rans_encode2:{wire}", mode=wire,
-                    run=partial(rk.rans_encode2, *args, **mf),
-                    plain=partial(rk.rans_encode2_plain, *args, **mf),
-                    kernel=partial(rk._encode_kernel, *args, wire),
-                    G=len(items), steps=rk.SPC[wire] * t4, out_hw=2,
-                    tbl_bytes=fc.nbytes + mg.nbytes, src_bytes=srcw.nbytes,
-                    chain="encode"))
+                t4, hcap = api._wire_t4(wire, n_pad), api._hrows_cap(n_pad)
+                args = (*ins.values(), t4, hcap, tlog)
+                b = dict(mode=wire, G=len(items), steps=rk.SPC[wire] * t4,
+                         tbl_bytes=fc.nbytes + mg.nbytes, src_bytes=srcw.nbytes,
+                         chain="encode", out_hw=2,
+                         shards=1 if mesh is None else mesh.devices.size)
+                if entry == "rans_encode":          # the byte v1 encode
+                    v1 = (*ins.values(), t4, hcap, False, tlog, st)
+                    b.update(key="rans_encode:byte", stots=st, out_hw=4,
+                             run=partial(rk.rans_encode, *v1),
+                             plain=partial(rk.rans_encode_plain, *v1),
+                             kernel=partial(rk._encode_kernel, *args, wire, False, st))
+                else:
+                    rowloc, est = api.encode_placement(wire, st, mesh)
+                    mf = dict(u16=wire == "pair", quad=wire == "quad", steptots=est)
+                    b.update(key=f"rans_encode2{'' if rowloc else '_flat'}:{wire}",
+                             stots=est,
+                             run=partial(rk.rans_encode2, *args, **mf, rowloc=rowloc),
+                             plain=partial(rk.rans_encode2_plain, *args, **mf),
+                             kernel=partial(rk._encode_kernel, *args, wire, True, est))
+                out.append(b)
         else:
-            steptots = p.flags.get("steptots", True)
-            _n, _f, batches = api.plan_encode16(p.data, p.group, steptots)
+            _n, _f, batches = api.plan_encode16(p.data, p.group, st)
+            packed = entry == "rans_encode2_flat"
             for (n_pad, big, tlog), items in batches.items():
                 fc, mg, srcw = api.stage_encode16_batch(items, n_pad, big)
                 ins = to_tensors(DEV, fc_tables=fc, magic_tables=mg, src_words=srcw)
                 t2, hcap = n_pad // 2048, api._round8(n_pad // 128 + 16)
                 mode = "u16x" if big else "u16"
                 args = (*ins.values(), t2, hcap)
+                if packed:
+                    run = partial(rk.rans_encode2, *args, tlog, u16=True, steptots=st)
+                    plain = partial(rk.rans_encode2_plain, *args, tlog, u16=True,
+                                    steptots=st)
+                else:
+                    run = partial(rk.rans_encode, *args, True, tlog, st)
+                    plain = partial(rk.rans_encode_plain, *args, True, tlog, st)
                 out.append(dict(
-                    key=f"rans_encode:{mode}", mode=mode,
-                    run=partial(rk.rans_encode, *args, True, tlog, steptots),
-                    plain=partial(rk.rans_encode_plain, *args, True, tlog, steptots),
-                    kernel=partial(rk._encode16_kernel, *args, tlog, mode),
-                    G=len(items), steps=2 * t2, out_hw=4,
+                    key=f"{entry or 'rans_encode'}:{mode}", mode=mode, run=run,
+                    plain=plain, stots=st,
+                    kernel=partial(rk._encode_kernel, *args, tlog, mode, packed, st),
+                    G=len(items), steps=2 * t2, out_hw=2 if packed else 4,
                     tbl_bytes=fc.nbytes + mg.nbytes, src_bytes=srcw.nbytes,
                     chain="encode"))
         for b in out:
             b["ops"] = ENC_OPS_PER_STEP[b["mode"]] * b["G"] * b["steps"] * 1024
             # src once, tables once, the payload halfwords (one per word on
-            # the U16 encode), finals, csize and the step counts
+            # the v1 encode), finals, csize and the step counts when kept
             b["nbytes"] = lambda o, b=b: (
                 b["src_bytes"] + b["tbl_bytes"]
                 + b["out_hw"] * int(o[2].long().sum()) + b["G"] * (4096 + 4)
-                + b["G"] * b["steps"] * 8 * 4)
+                + (b["G"] * b["steps"] * 8 * 4 if b["stots"] else 0))
         return out
 
     def decode_batches(p: Piece, blob: bytes, windows: int) -> list[dict]:
         """Every decode batch of blob, planned, staged and routed as the
         decompress entry point does it (same fields as encode_batches)."""
+        mesh = p.flags.get("mesh")
         staged = []
         if p.codec == "turbo":
             groups = api.parse_groups(blob)
@@ -372,7 +455,8 @@ def main() -> int:
             common = tuple(ins.values())
             G = len(cs)
             b = dict(mode=mode, G=G, steps=rk.SPC[mode] * t4, streams=ins["streams"],
-                     csize=ins["csize_hw"], chain="flat")
+                     mid_word=cs // 4, chain="flat",
+                     shards=1 if mesh is None else mesh.devices.size)
             if kind == 0:
                 v1 = {k: v for k, v in flags.items() if k != "quad"}
                 b.update(key=f"rans_decode:{mode}",
@@ -384,8 +468,9 @@ def main() -> int:
                          tots_bytes=0)
             else:
                 st = to_tensors(DEV, steptots=tots)["steptots"]
-                nway, S = api._window_dispatch(windows, t4, hrows, tlog, G,
-                                               kind == 1, **flags)
+                # the mesh branch decodes every speed-wire batch with v2
+                nway, S = ((0, 0) if mesh is not None else api._window_dispatch(
+                    windows, t4, hrows, tlog, G, kind == 1, **flags))
                 entry = "rans_decode_w" if nway else "rans_decode_v2"
                 cursors, roff, _bad = rk._decode_prep(ins["csize_hw"], st)
                 if nway:
@@ -417,6 +502,26 @@ def main() -> int:
             out.append(b)
         return out
 
+    def v0_batch(blobs: list[bytes]) -> dict:
+        """The v0 decode of v0 frames of one padded size, staged as the JAX
+        package's test composes it (parse_group, pack_dtable)."""
+        cs, tbl, init, st, t4, wrows = v0.stage_groups(
+            [parse_group(b)[0] for b in blobs])
+        ins = to_tensors(DEV, csize_bits=cs, tables=tbl, init_states=init,
+                         streams=st)
+        args = (*ins.values(), t4, wrows)
+        G = len(blobs)
+        # payload words, tables, init states, csize once; output words, err
+        nb = (4 * int(((cs.astype(np.int64) + 31) // 32).sum()) + tbl.nbytes
+              + init.nbytes + cs.nbytes + G * t4 * 4096 + G * 4)
+        return dict(key="turbo_fse_decode:v0", mode="v0", G=G, steps=4 * t4,
+                    run=partial(v0.turbo_fse_decode, *args),
+                    plain=partial(v0.turbo_fse_decode_plain, *args),
+                    kernel=partial(v0._decode_v0_kernel, *args[:4], t4),
+                    streams=ins["streams"], mid_word=cs // 64, chain="flat",
+                    ops=G * 4 * t4 * (V0_OPS_PER_STEP * 1024 + FLAT_SCAN_ADDS),
+                    nbytes=lambda o, nb=nb: nb)
+
     # 3. each kernel entry and mode against its plain version, a group corrupted
     corpus = generate_proba(80, max(MAIN_MIB, PAIR_MIB) * GROUP)
     u16_syms = u16_corpus(U16_MSYMS << 20, False)
@@ -429,7 +534,23 @@ def main() -> int:
         dict(pair=1, steptots=False), dict(totals_only=True))]
     cases += [Piece("turbo16", s, GROUP16, dict(steptots=st))
               for s in (three16, three16x) for st in (True, False)]
+    mesh = make_mesh()          # the visible GPUs: the flat byte encode
+    m = mesh.devices.size
+    require(m >= 1, "no CUDA device in the mesh")
+    cases += [Piece("turbo", three, GROUP, dict(f, mesh=mesh))
+              for f in (dict(pair=0, quad=0), dict(steptots=False))]
     checked = set()
+
+    def check_decode(b: dict) -> None:
+        require(b["G"] == 3, f"{b['key']}: {b['G']} groups, not 3")
+        b["streams"][1].view(-1)[int(b["mid_word"][1])] ^= 1 << 9
+        want, got = b["plain"](), b["run"]()
+        torch.cuda.synchronize()
+        errs[b["key"]] = max(errs[b["key"]], max_abs_err(got, want))
+        require((got[1] != 0).tolist() == [False, True, False],
+                f"{b['key']}: corrupt group not flagged: {got[1].tolist()}")
+        checked.add(b["key"])
+
     for p in cases:
         for b in encode_batches(p):
             errs[b["key"]] = max(errs[b["key"]], max_abs_err(b["run"](), b["plain"]()))
@@ -437,19 +558,22 @@ def main() -> int:
         blob = compress(p)
         for windows in (1, 8):          # the resident and the windowed entry
             for b in decode_batches(p, blob, windows):
-                require(b["G"] == 3, f"{b['key']}: {b['G']} groups, not 3")
-                b["streams"][1].view(-1)[int(b["csize"][1]) // 4] ^= 1 << 9
-                want, got = b["plain"](), b["run"]()
-                torch.cuda.synchronize()
-                errs[b["key"]] = max(errs[b["key"]], max_abs_err(got, want))
-                require(got[1].tolist() == [0, 1, 0],
-                        f"{b['key']}: corrupt group not flagged: {got[1].tolist()}")
-                checked.add(b["key"])
+                check_decode(b)
+    # the byte v1 encode, and the flat encode on U16 tables
+    extra = [b for st in (True, False) for b in encode_batches(
+        Piece("turbo", three, GROUP, dict(pair=0, quad=0, steptots=st)), "rans_encode")]
+    extra += [b for s in (three16, three16x) for b in encode_batches(
+        Piece("turbo16", s, GROUP16, dict(steptots=True)), "rans_encode2_flat")]
+    for b in extra:
+        errs[b["key"]] = max(errs[b["key"]], max_abs_err(b["run"](), b["plain"]()))
+        checked.add(b["key"])
+    check_decode(v0_batch([turbo_fse_compress(corpus[i * GROUP:(i + 1) * GROUP])
+                           for i in range(3)]))
     require(checked == set(rk.launches),
             f"not checked against plain: {sorted(set(rk.launches) - checked)}")
     require(max(errs.values()) == 0, f"a kernel differs from its plain version: {errs}")
     print(json.dumps({"phase": "kernel_vs_plain", "max_abs_err": errs,
-                      "corrupt_group_err": [0, 1, 0]}), flush=True)
+                      "corrupt_group_flagged": [False, True, False]}), flush=True)
 
     # 4. the paths through the entry points, each counted on its own
     rng = np.random.default_rng(5)
@@ -481,6 +605,9 @@ def main() -> int:
         "u16x_pareto_16MiB": [
             Piece("turbo16", u16x_syms, GROUP16, dict(steptots=True), (0, 8)),
             Piece("turbo16", u16x_syms, GROUP16, dict(steptots=False))],
+        "mesh_p80_64MiB": [Piece("turbo", main_data, GROUP, dict(byte, mesh=mesh)),
+                           Piece("turbo", main_data, GROUP,
+                                 dict(steptots=False, mesh=mesh))],
     }
     warm = Piece("turbo", corpus[:GROUP], GROUP)
     decompress(warm, compress(warm), 0)
@@ -500,6 +627,114 @@ def main() -> int:
                                        f"(windows={windows})")
             blobs[(name, k)], e2e_s[f"{name}/{k}"] = blob, secs
         launches[name] = {k: v for k, v in rk.launches.items() if v}
+    require(blobs[("mesh_p80_64MiB", 0)] == blobs[("byte_p80_64MiB", 0)]
+            and blobs[("mesh_p80_64MiB", 1)] == blobs[("ratio_p80_64MiB", 0)],
+            "mesh frames differ from the single-device frames")
+
+    # the U16 round trip over the mesh: the flat encode on 8-chunk tables
+    _n, _f, b16 = api.plan_encode16(u16_syms, GROUP16, True)
+    ((n16, big16, tlog16), items16), = b16.items()
+    fc16, mg16, src16 = api.stage_encode16_batch(items16, n16, big16)
+    dtbl16 = np.stack([pack_rans16_dtable(it[2][0], tlog16) for it in items16])
+    t2, hcap16 = n16 // 2048, api._round8(n16 // 128 + 16)
+    rk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok, total = sharded_turbo16_roundtrip(mesh, t2, hcap16, tlog16)(
+        fc16, mg16, src16, dtbl16)
+    ok, total = int(ok), int(total)
+    e2e_s["mesh_u16_pareto/0"] = [time.perf_counter() - t0]
+    launches["mesh_u16_pareto"] = {k: v for k, v in rk.launches.items() if v}
+    single16 = sum(g[1] for g in api.parse_groups16(blobs[("u16_pareto_64MiB", 0)]))
+    require(ok == 1 and total == single16,
+            f"mesh u16 round trip: ok {ok}, {total} halfwords, single-device {single16}")
+    u16_speed = Piece("turbo16", u16_syms, GROUP16, dict(steptots=True))
+    path_batches = {"mesh_u16_pareto": lambda: [dict(b, shards=m) for b in (
+        encode_batches(u16_speed, "rans_encode2_flat")
+        + decode_batches(u16_speed, blobs[("u16_pareto_64MiB", 0)], 1))]}
+
+    def dryrun_batches() -> list[dict]:
+        """The batches of dryrun_multichip(m) on the dry run's own inputs
+        (parallel/dryrun.py): each sharded round trip's encode and decode
+        over its 2m groups (the windowed one's min(m, 2)), a launch per
+        shard, the decode fed the plain encode's output; then the mixed
+        frame's batches as the entry points plan them."""
+        p80, w = generate_proba(80), min(m, 2)
+        trips = (  # inputs, encode flags, decode entry, decode flags, shards
+            (dr.byte_inputs(p80, 2 * m, 8192) + (11,), dict(steptots=False),
+             "rans_decode", {}, m),
+            (dr.byte_inputs(p80, 2 * m, 8192) + (11,), {}, "rans_decode_v2", {}, m),
+            (dr.w_inputs(w) + (11,), dict(rowloc=True), "rans_decode_w",
+             dict(nway=1, S=32), w),
+            (dr.u16_inputs(2 * m) + (11,), dict(u16=True), "rans_decode_v2",
+             dict(u16=True), m),
+            (dr.multibyte_inputs(2 * m, "pair")[:7], dict(u16=True, rowloc=True),
+             "rans_decode_v2", dict(u16=True, pair=True), m),
+            (dr.multibyte_inputs(2 * m, "quad")[:7], dict(quad=True, rowloc=True),
+             "rans_decode_v2", dict(quad=True), m))
+        out = []
+        for (*arrays, steps, hcap, tlog), ef, entry, df, shards in trips:
+            fc, mg, srcw, dtbl = (torch.from_numpy(a).to(DEV) for a in arrays)
+            rowloc = ef.pop("rowloc", False)
+            args = (fc, mg, srcw, steps, hcap, tlog)
+            enc = rk.rans_encode2_plain(*args, **ef)
+            mode = rk._encode_mode(fc, mg, srcw, steps, ef.get("u16", False),
+                                   ef.get("quad", False))
+            out.append(dict(key=f"rans_encode2{'' if rowloc else '_flat'}:{mode}",
+                            shards=shards, plain=lambda enc=enc: enc,
+                            run=partial(rk.rans_encode2, *args, **ef, rowloc=rowloc)))
+            stream, fin, csize, stots = enc
+            nway, S = df.pop("nway", 0), df.pop("S", 0)
+            if entry == "rans_decode":
+                dargs = (csize, dtbl, fin, stream, steps, hcap)
+                run = partial(rk.rans_decode, *dargs, tlog=tlog)
+                plain = partial(rk.rans_decode_v1_plain, *dargs, tlog=tlog)
+            else:
+                dargs = (csize, dtbl, fin, stream, stots, steps, hcap)
+                run = (partial(rk.rans_decode_w, *dargs, nway, tlog, S, **df) if nway
+                       else partial(rk.rans_decode_v2, *dargs, tlog, **df))
+                plain = partial(rk.rans_decode_plain, *dargs, tlog, **df)
+            dmode = rk._mode(df.get("u16", False), df.get("pair", False),
+                             df.get("quad", False))
+            out.append(dict(key=f"{entry}:{dmode}", shards=shards, run=run,
+                            plain=plain))
+        one = Piece("turbo", dr.mixed_frame_data(), dr.MIXED_GROUP)
+        meshed = Piece("turbo", one.data, one.group, dict(mesh=mesh)) if m > 1 else one
+        return (out + encode_batches(meshed) + encode_batches(one)
+                + decode_batches(meshed, compress(one), 0))
+    path_batches["dryrun_multichip"] = dryrun_batches
+
+    # the multi-device dry run over the visible GPUs
+    rk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dry = []
+    dr.dryrun_multichip(m, log=dry.append)
+    torch.cuda.synchronize()
+    e2e_s["dryrun_multichip/0"] = [time.perf_counter() - t0]
+    launches["dryrun_multichip"] = {k: v for k, v in rk.launches.items() if v}
+    print(json.dumps({"phase": "dryrun_multichip", "devices": m,
+                      "lines": dry}), flush=True)
+
+    # the v0 TurboFSE path: the numpy twin encodes, one decode launch
+    v0_data = corpus[:V0_MIB * GROUP]
+    t0 = time.perf_counter()
+    v0_blobs = [turbo_fse_compress(v0_data[i * GROUP:(i + 1) * GROUP])
+                for i in range(V0_MIB)]
+    v0_secs = [time.perf_counter() - t0]
+    rk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, err = v0_batch(v0_blobs)["run"]()
+    out, err = out.cpu().numpy(), err.cpu().numpy()
+    v0_secs.append(time.perf_counter() - t0)
+    launches["v0_p80_16MiB"] = {k: v for k, v in rk.launches.items() if v}
+    require(not err.any() and out.astype("<i4").tobytes() == v0_data,
+            "v0 path: the decode does not give the input back")
+    require(all(turbo_fse_decompress(b) == v0_data[i * GROUP:(i + 1) * GROUP]
+                for i, b in enumerate(v0_blobs)), "v0 path: twin decode differs")
+    e2e_s["v0_p80_16MiB/0"] = v0_secs
+    path_batches["v0_p80_16MiB"] = lambda: [v0_batch(v0_blobs)]
     print(json.dumps({"phase": "main_path", "launches": launches,
                       "seconds_compress_then_decompress": e2e_s}), flush=True)
     expect = {
@@ -514,7 +749,13 @@ def main() -> int:
         "u16_pareto_64MiB": {"rans_encode:u16": 2, "rans_decode_v2:u16": 1,
                              "rans_decode_w:u16": 1, "rans_decode:u16": 1},
         "u16x_pareto_16MiB": {"rans_encode:u16x": 2, "rans_decode_v2:u16x": 1,
-                              "rans_decode_w:u16x": 1, "rans_decode:u16x": 1}}
+                              "rans_decode_w:u16x": 1, "rans_decode:u16x": 1},
+        # one launch per shard of each step
+        "mesh_p80_64MiB": {"rans_encode2_flat:byte": 2 * m,
+                           "rans_decode_v2:byte": m, "rans_decode:byte": m},
+        "mesh_u16_pareto": {"rans_encode2_flat:u16": m, "rans_decode_v2:u16": m},
+        "dryrun_multichip": dryrun_launches(m),
+        "v0_p80_16MiB": {"turbo_fse_decode:v0": 1}}
     for name, want in expect.items():
         require(launches[name] == want, f"{name} routes: {launches[name]}")
     for name, need in (("default_mixed", ("pair", "quad", "byte")),
@@ -583,20 +824,27 @@ def main() -> int:
                       "ratio": ratio}), flush=True)
 
     # 5. every batch of every path: the wrappers against the plain versions
-    shapes, path_errs = {}, {}
-    for name, pieces in paths.items():
-        perr, counts = {}, {}
-        for k, p in enumerate(pieces):
-            batches = encode_batches(p)
+    def batches_of(name: str) -> list[dict]:
+        if name in path_batches:
+            return path_batches[name]()
+        out = []
+        for k, p in enumerate(paths[name]):
+            out += encode_batches(p)
             for windows in p.windows:
-                batches += decode_batches(p, blobs[(name, k)], windows)
-            for b in batches:
-                key = b["key"]
-                got, want = b["run"](), b["plain"]()
-                if not key.startswith("rans_encode"):
-                    require(not want[1].any(), f"{name}: plain decode flags a clean group")
-                perr[key] = max(perr.get(key, 0), max_abs_err(got, want))
-                counts[key] = counts.get(key, 0) + 1
+                out += decode_batches(p, blobs[(name, k)], windows)
+        return out
+
+    shapes, path_errs = {}, {}
+    for name in [*paths, *path_batches]:
+        perr, counts = {}, {}
+        for b in batches_of(name):
+            key = b["key"]
+            got, want = b["run"](), b["plain"]()
+            if not key.startswith("rans_encode"):
+                require(not want[1].any(), f"{name}: plain decode flags a clean group")
+            perr[key] = max(perr.get(key, 0), max_abs_err(got, want))
+            counts[key] = counts.get(key, 0) + b.get("shards", 1)
+            if "kernel" in b:                   # timed at the first path's shapes
                 shapes.setdefault(key, (name, b))
         torch.cuda.synchronize()
         require(counts == launches[name],
@@ -605,6 +853,21 @@ def main() -> int:
         path_errs[name] = perr
         for key, v in perr.items():
             errs[key] = max(errs[key], v)
+    # entry-modes no path launches (the JAX package runs them only in its
+    # tests) are timed at the shapes of the path named
+    timing_only = {
+        "rans_encode:byte": ("byte_p80_64MiB", lambda: encode_batches(
+            Piece("turbo", main_data, GROUP, byte), "rans_encode")),
+        "rans_encode2_flat:u16x": ("u16x_pareto_16MiB", lambda: encode_batches(
+            Piece("turbo16", u16x_syms, GROUP16, dict(steptots=True)),
+            "rans_encode2_flat"))}
+    for key, (like, make) in timing_only.items():
+        if key not in shapes:
+            (b,) = make()
+            require(b["key"] == key, f"{key}: staged {b['key']}")
+            errs[key] = max(errs[key], max_abs_err(b["run"](), b["plain"]()))
+            shapes[key] = (f"shapes of {like} (no path launches it)", b)
+    require(max(errs.values()) == 0, f"a kernel differs from its plain version: {errs}")
     require(set(shapes) == set(rk.launches), f"kernels never launched: "
             f"{sorted(set(rk.launches) - set(shapes))}")
     print(json.dumps({"phase": "path_kernels_vs_plain", "max_abs_err": path_errs,
@@ -660,7 +923,7 @@ def main() -> int:
         nbytes = b["nbytes"](b["kernel"]())
         rows.append({"name": key, "route": "cuda", "source": source_of(key),
                      "replaces": replaces(key),
-                     "path": path, "launches": launches[path].get(key, 0),
+                     "path": path, "launches": launches.get(path, {}).get(key, 0),
                      "launches_by_path": {p: c.get(key, 0) for p, c in launches.items()},
                      "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
                      **bound(nbytes, b["ops"], b["steps"], chain[b["chain"]], clock_hz),

@@ -11,3 +11,8 @@ FSE_MAX_TABLELOG = FSE_MAX_MEMORY_USAGE - 2          # 12
 FSE_DEFAULT_TABLELOG = FSE_DEFAULT_MEMORY_USAGE - 2  # 11
 FSE_MIN_TABLELOG = 5
 FSE_TABLELOG_ABSOLUTE_MAX = 15
+
+
+def fse_tablestep(table_size: int) -> int:
+    """Spread step: (size>>1) + (size>>3) + 3 (reference lib/fse.h:683)."""
+    return (table_size >> 1) + (table_size >> 3) + 3

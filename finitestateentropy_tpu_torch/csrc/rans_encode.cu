@@ -1,15 +1,20 @@
 // TurboRANS encode for Hopper (sm_90a): byte, pair and quad wires, and the
-// U16 codec's u16 and u16x modes.
+// U16 codec's u16 and u16x modes, in both output layouts.
 //
-// rans_encode_launch replaces
-// finitestateentropy_tpu/turbo/rans_kernels.py:_rans_encode_rl_kernel
-// (rans_encode2(..., rowloc=True)) in its three modes, and computes the same
-// wire as _rans_encode2_kernel: two halfwords per output word.
-// rans_encode16_launch replaces _rans_encode_kernel (rans_encode, :303-459)
-// in its u16 modes: one halfword per output i32, as that kernel lays it out.
-// The output bytes equal the numpy twins turbo/rans.py:rans_compress,
-// turbo/pair.py:pair_compress, turbo/quad.py:quad_compress and
-// turbo/rans16.py:rans16_compress.
+// rans_encode_launch replaces, in finitestateentropy_tpu/turbo/rans_kernels.py,
+//   _rans_encode_rl_kernel  (rans_encode2(..., rowloc=True), the row-local
+//                            placement) and
+//   _rans_encode2_kernel    (rans_encode2(..., rowloc=False), the flat
+//                            placement by binary search):
+// both write the same packed wire, two halfwords per output word; and
+//   _rans_encode_kernel     (rans_encode, the v1 encode, :303-459): one
+//                            halfword per output i32, as that kernel lays it
+//                            out.
+// On the TPU the placements differ only in how Mosaic, which has no scatter,
+// pulls each halfword into place; here each flagged lane stores its own, so
+// one kernel serves all three entries.  The output bytes equal the numpy
+// twins turbo/rans.py:rans_compress, turbo/pair.py:pair_compress,
+// turbo/quad.py:quad_compress and turbo/rans16.py:rans16_compress.
 //
 // One block of 1024 threads per group; thread k is lane k (row k>>7, column
 // k&127), so row r is warps 4r..4r+3.  Steps run in reverse, as rANS
@@ -34,7 +39,8 @@
 // and a scan of the 32 warp counts; each flagged lane stores its halfword
 // itself (the TPU kernel's binary-search "pull" placement existed only
 // because Mosaic has no scatter).  The per-row totals of every step go to
-// stots[t][row]: the FLAG_STEPTOTS section.
+// stots[t][row] (the FLAG_STEPTOTS section) unless stots is null (ratio
+// mode drops them).
 //
 // What bounds it: the x chain is a few dependent integer ops per step and
 // runs at ALU latency, but every step ends in one block-wide barrier (the
@@ -86,7 +92,7 @@ rans_encode_lanes(const int32_t* __restrict__ fc_tables,
 
   const int32_t* s = src + static_cast<size_t>(g) * t4_count * kLanes + k;
   OutT* hw = stream + static_cast<size_t>(g) * stream_hw;
-  int32_t* st = stots + static_cast<size_t>(g) * t4_count * SPC * 8;
+  int32_t* st = stots ? stots + static_cast<size_t>(g) * t4_count * SPC * 8 : nullptr;
   const unsigned le_mask = 0xFFFFFFFFu >> (31 - lane);   // lanes <= lane
   const int shift = 32 - tlog;
 
@@ -133,7 +139,7 @@ rans_encode_lanes(const int32_t* __restrict__ fc_tables,
         const int pos = cursor + total - rank;
         if (pos < stream_hw) hw[pos] = static_cast<OutT>(emit);
       }
-      if ((k & 127) == 0) st[(SPC * t4 + p) * 8 + row] = row_hi - (row ? row_lo : 0);
+      if (st && (k & 127) == 0) st[(SPC * t4 + p) * 8 + row] = row_hi - (row ? row_lo : 0);
       cursor += total;
       buf ^= 1;
     }
@@ -156,43 +162,37 @@ int launch(const void* fc, const void* magic, const void* src, void* stream,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instantiation for (spc, table entries, layout), or null.
+using Launch = decltype(&launch<4, 256, uint16_t>);
+template <typename OutT>
+Launch pick(int spc, int syms) {
+  if (syms == 256 && spc == 4) return &launch<4, 256, OutT>;
+  if (syms == 256 && spc == 2) return &launch<2, 256, OutT>;
+  if (syms == 256 && spc == 1) return &launch<1, 256, OutT>;
+  if (syms == 1024 && spc == 2) return &launch<2, 1024, OutT>;
+  if (syms == 4096 && spc == 2) return &launch<2, 4096, OutT>;
+  return nullptr;
+}
+
 }  // namespace
 
-// fc, magic: [G, 256] i32; src: [G, t4_count*1024] i32 (4 bytes, 2 pair ids
-// or 1 quad id per word); stream: [G, stream_hw] u16, zeroed by the caller;
-// finals: [G, 1024] i32; csize: [G] i32; stots: [G, spc*t4_count, 8] i32.
-// spc: 4 (byte), 2 (pair) or 1 (quad).  Returns the launch's cudaError_t
-// (0 = launched).
+// fc, magic: [G, nch*128] i32: nch 2 (byte symbols, pair or quad ids,
+// (cumul << 12) | freq), 8 (u16 symbols <= 1023, the same fields) or 32
+// (u16 symbols <= 4095, (cumul << 14) | freq); src: [G, t4_count*1024] i32
+// (4 bytes, 2 pair ids or u16 symbols, or 1 quad id per word); spc: 4
+// (byte), 2 (pair, u16) or 1 (quad).  packed 1: stream is [G, stream_hw]
+// u16, two halfwords per word (rans_encode2); packed 0: [G, stream_hw] i32,
+// one halfword per entry (rans_encode).  Zeroed by the caller.  finals:
+// [G, 1024] i32; csize: [G] i32; stots: [G, spc*t4_count, 8] i32, or null.
+// Returns the launch's cudaError_t (0 = launched).
 extern "C" int rans_encode_launch(const void* fc, const void* magic,
                                   const void* src, void* stream, int stream_hw,
                                   void* finals, void* csize, void* stots,
                                   int groups, int t4_count, int tlog, int spc,
-                                  void* cuda_stream) {
-  decltype(&launch<4, 256, uint16_t>) run = nullptr;
-  if (spc == 4) run = &launch<4, 256, uint16_t>;
-  if (spc == 2) run = &launch<2, 256, uint16_t>;
-  if (spc == 1) run = &launch<1, 256, uint16_t>;
+                                  int nch, int packed, void* cuda_stream) {
+  const Launch run = packed ? pick<uint16_t>(spc, nch * 128)
+                            : pick<int32_t>(spc, nch * 128);
   if (run == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return run(fc, magic, src, stream, stream_hw, finals, csize, stots, groups,
              t4_count, tlog, cuda_stream);
-}
-
-// The U16 codec's encode.  fc, magic: [G, nch*128] i32, nch 8 (symbols <=
-// 1023, (cumul << 12) | freq) or 32 (symbols <= 4095, (cumul << 14) |
-// freq); src: [G, t2_count*1024] i32 (2 u16 symbols per word); stream:
-// [G, stream_entries] i32, one halfword per entry, zeroed by the caller;
-// finals: [G, 1024] i32; csize: [G] i32; stots: [G, 2*t2_count, 8] i32.
-// Returns the launch's cudaError_t (0 = launched).
-extern "C" int rans_encode16_launch(const void* fc, const void* magic,
-                                    const void* src, void* stream,
-                                    int stream_entries, void* finals,
-                                    void* csize, void* stots, int groups,
-                                    int t2_count, int tlog, int nch,
-                                    void* cuda_stream) {
-  decltype(&launch<2, 1024, int32_t>) run = nullptr;
-  if (nch == 8) run = &launch<2, 1024, int32_t>;
-  if (nch == 32) run = &launch<2, 4096, int32_t>;
-  if (run == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return run(fc, magic, src, stream, stream_entries, finals, csize, stots,
-             groups, t2_count, tlog, cuda_stream);
 }

@@ -1,4 +1,5 @@
-"""TurboRANS on the GPU: the lane-interleaved rANS codec.
+"""TurboRANS on the GPU: the lane-interleaved rANS codec, and the v0
+TurboFSE codec.
 
 rans.py holds the byte wire (speed, ratio and totals frames) and its
 bit-exact numpy twin, pair.py and quad.py the pair and quad wires and
@@ -7,8 +8,12 @@ theirs, rans16.py the TurboRANS-U16 codec for 16-bit symbols and its twin
 packers, rans_kernels.py the CUDA kernel wrappers with their plain PyTorch
 versions, state.py the carry-across from the JAX layouts, and api.py the
 entry points turbo_compress_device / turbo_decompress_device and
-turbo16_compress_device / turbo16_decompress_device.
+turbo16_compress_device / turbo16_decompress_device.  format.py is the v0
+TurboFSE wire (bit-granular tANS) and its numpy twin, kernels.py its
+decode kernel's wrapper.
 """
+from .format import (TURBO_LANES, TURBO_MAGIC, turbo_fse_compress,
+                     turbo_fse_decompress)
 
 
 def __getattr__(name):  # lazy: importing the package does not import torch

@@ -25,6 +25,9 @@ import torch
 from ..refimpl.hist import hist_count
 from ..refimpl.ncount import fse_write_ncount
 from ..refimpl.norm import fse_normalize_count, fse_optimal_table_log
+from ..parallel.mesh import Mesh, get_mesh
+from ..parallel.turbo_dp import (sharded_turbo_decode, sharded_turbo_decode_v2,
+                                 sharded_turbo_encode, sharded_turbo_encode_v2)
 from ..utils.debug import debuglog
 from .format import TURBO_LANES, _pad_n
 from .pair import apply_escapes, predicted_bits, prep_pair_group
@@ -67,6 +70,20 @@ def _round8(x: int) -> int:
 def _hrows_cap(n_pad: int) -> int:
     # <= 1 halfword per symbol; round rows to a multiple of 8 + slack
     return _round8((n_pad + 127) // 128 + 16)
+
+
+def _mesh_of(mesh, dev: torch.device) -> Mesh | None:
+    """The entry points' mesh: a Mesh as given, else get_mesh(mesh)."""
+    return mesh if isinstance(mesh, Mesh) else get_mesh(mesh, dev)
+
+
+def _pad_groups(arrs, m: int):
+    """Pad leading group dim to a multiple of m (dup of last group)."""
+    G = arrs[0].shape[0]
+    pad = (-G) % m
+    if pad == 0:
+        return arrs
+    return [np.concatenate([a] + [a[-1:]] * pad, axis=0) for a in arrs]
 
 
 def _prep_group(chunk: np.ndarray, table_log: int = RANS_TABLELOG):
@@ -334,7 +351,7 @@ def mode_flags(table_log: int, steptots: bool, totals_only: bool,
 
 def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
                           table_log: int = 0,
-                          steptots: bool = True, mesh: int = 0,
+                          steptots: bool = True, mesh: int | Mesh = 0,
                           totals_only: bool = False,
                           pair: int = -1,
                           pair_table_log: int = 0,
@@ -356,13 +373,15 @@ def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
     no multi-byte variants and quad is speed-mode only, so totals_only
     turns both off and ratio mode turns quad and the auto pair off (an
     explicit pair=1 is kept).  pair_table_log / quad_table_log = 0 pick
-    the wire defaults.  mesh > 1 raises NotImplementedError (not ported
-    yet).  device: torch device for the kernels; None = cuda (raises
-    without one), "cpu" runs the plain PyTorch versions."""
-    if mesh > 1:
-        raise NotImplementedError(
-            "multi-device compress arrives with ROADMAP.md queue A item 9")
+    the wire defaults.  mesh > 1 splits each batch's groups over that many
+    devices (parallel/turbo_dp.py; the frames are the same), or warns and
+    runs on one device when fewer are attached; a parallel.mesh.Mesh is
+    used as given (one of a single device still runs the sharded steps).
+    device: torch device for the kernels; None = cuda (raises without
+    one), "cpu" runs the plain PyTorch versions (a mesh of CPU entries,
+    for the tests)."""
     dev = resolve_device(device)
+    mesh_obj = _mesh_of(mesh, dev)
     table_log, pair, quad = mode_flags(table_log, steptots, totals_only,
                                        pair, quad)
     if not 5 <= table_log <= 12:
@@ -390,26 +409,69 @@ def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
                  wire, G, n_pad, tlog)
         with _stage("c_stage", dev):
             fc, mg, srcw = STAGE_BATCH[wire](items, n_pad)
-        with _stage("c_h2d", dev):
-            ins = to_tensors(dev, fc_tables=fc, magic_tables=mg, src_words=srcw)
-        with _stage("c_kernel", dev):
-            stream, fin, csize, stots = rans_encode2(
-                ins["fc_tables"], ins["magic_tables"], ins["src_words"],
-                _wire_t4(wire, n_pad), _hrows_cap(n_pad), tlog,
-                u16=wire == "pair", quad=wire == "quad")
+        t4, hcap = _wire_t4(wire, n_pad), _hrows_cap(n_pad)
+        if mesh_obj is None:
+            with _stage("c_h2d", dev):
+                ins = to_tensors(dev, fc_tables=fc, magic_tables=mg,
+                                 src_words=srcw)
+            rowloc, st = encode_placement(wire, steptots, None)
+            with _stage("c_kernel", dev):
+                stream, fin, csize, stots = rans_encode2(
+                    ins["fc_tables"], ins["magic_tables"], ins["src_words"],
+                    t4, hcap, tlog, u16=wire == "pair", quad=wire == "quad",
+                    steptots=st, rowloc=rowloc)
+        else:
+            with _stage("c_kernel", dev):
+                stream, fin, csize, stots = _mesh_encode(
+                    mesh_obj, wire, fc, mg, srcw, t4, hcap, tlog, steptots)
         with _stage("c_d2h", dev):
-            csize = csize.cpu().numpy()
+            csize = csize[:G].cpu().numpy()
             # the payload is the first csize halfwords: copy only the words used
             used = (int(csize.max()) + 1) // 2
-            stream = stream.reshape(G, -1)[:, :used].cpu().numpy()
-            fin = fin.cpu().numpy()
-            stots = stots.cpu().numpy().astype(np.uint8)
+            stream = stream[:G].reshape(G, -1)[:, :used].cpu().numpy()
+            fin = fin[:G].cpu().numpy()
+            stots = (stots[:G].cpu().numpy().astype(np.uint8) if sect_kind
+                     else [None] * G)
         with _stage("c_frames", dev):
             for j, (gi, ch, prep) in enumerate(items):
                 results[gi] = _encode_frame(ch, tlog, *_frame_head(wire, prep),
                                             int(csize[j]), stream[j], fin[j],
                                             stots[j], sect_kind)
     return b"".join(results[gi] for gi in range(n_groups))
+
+
+def encode_placement(wire: str, steptots: bool,
+                     mesh_obj: Mesh | None) -> tuple[bool, bool]:
+    """(rowloc, steptots) of a batch's rans_encode2 call.  On one device
+    every wire takes the row-local placement and the caller's steptots.
+    Under a mesh, as the JAX package's mesh branches (JAX api.py:288-309,
+    :375-390, :447-460): byte groups take the flat placement and the
+    caller's steptots; pair and quad groups the row-local one, always with
+    step counts (ratio-mode pair frames drop them)."""
+    if mesh_obj is None:
+        return True, steptots
+    if wire == "byte":
+        return False, steptots
+    return True, True
+
+
+def _mesh_encode(mesh_obj, wire: str, fc, mg, srcw, t4: int, hcap: int,
+                 tlog: int, steptots: bool):
+    """A batch's encode over the mesh, as the JAX package's mesh branches
+    run it: the groups padded to a multiple of the mesh size, the
+    placement and steptots of encode_placement.  Returns the gathered
+    (stream, finals, csize, stots or None) of the padded batch."""
+    rowloc, steptots = encode_placement(wire, steptots, mesh_obj)
+    padded = _pad_groups([fc, mg, srcw], mesh_obj.devices.size)
+    if not steptots:
+        stream, fin, csize, _tot = sharded_turbo_encode(
+            mesh_obj, t4, hcap, tlog)(*padded)
+        return stream, fin, csize, None
+    step = sharded_turbo_encode_v2(mesh_obj, t4, hcap, tlog,
+                                   u16=wire == "pair", rowloc=rowloc,
+                                   quad=wire == "quad")
+    stream, fin, csize, stots, _tot = step(*padded)
+    return stream, fin, csize, stots
 
 
 def _window_dispatch(windows: int, t_count: int, hrows: int, tlog: int,
@@ -526,7 +588,47 @@ def _group_bytes(wire: str, g, words: np.ndarray) -> bytes:
     return apply_escapes(vals, g[10]).tobytes()[:n]
 
 
-def turbo_decompress_device(blob: bytes, mesh: int = 0, windows: int = 0,
+def _decode_batch(wire: str, args, steptots, t4: int, hrows: int, tlog: int,
+                  windows: int):
+    """One decode batch on one device: v1 groups (steptots None) through
+    rans_decode, the others through the entry _window_dispatch picks.
+    args: (csize_hw, tables, init_states, streams) tensors."""
+    is_pair = wire == "pair"
+    if steptots is None:        # v1: rank and cursor chain in the kernel
+        return rans_decode(*args, t4, hrows, is_pair, tlog, False, is_pair)
+    G = args[0].shape[0]
+    modes = dict(u16=is_pair, pair=is_pair, quad=wire == "quad")
+    w_nway, w_s = _window_dispatch(windows, t4, hrows, tlog, G,
+                                   steptots.dim() == 2, **modes)
+    if w_nway:
+        debuglog(2, "turbo decode: rans_decode_w entry (windows=%d, t4=%d, "
+                    "G=%d, wire=%s)", windows, t4, G, wire)
+        return rans_decode_w(*args, steptots, t4, hrows, w_nway, tlog, w_s,
+                             **modes)
+    return rans_decode_v2(*args, steptots, t4, hrows, tlog, **modes)
+
+
+def _mesh_decode(mesh_obj, wire: str, cs, tbl, init, hws, tots, t4: int,
+                 hrows: int, tlog: int):
+    """A decode batch over the mesh, as the JAX package's mesh branch runs
+    it (JAX api.py:643-670): the groups padded to a multiple of the mesh
+    size; v1 groups through rans_decode, the others through
+    rans_decode_v2.  Returns the gathered (out, err) of the padded
+    batch."""
+    is_pair = wire == "pair"
+    m = mesh_obj.devices.size
+    if tots is None:
+        step = sharded_turbo_decode(mesh_obj, t4, hrows, tlog, u16=is_pair,
+                                    pair=is_pair)
+        outw, err, _any = step(*_pad_groups([cs, tbl, init, hws], m))
+    else:
+        step = sharded_turbo_decode_v2(mesh_obj, t4, hrows, tlog, u16=is_pair,
+                                       pair=is_pair, quad=wire == "quad")
+        outw, err, _any = step(*_pad_groups([cs, tbl, init, hws, tots], m))
+    return outw, err
+
+
+def turbo_decompress_device(blob: bytes, mesh: int | Mesh = 0, windows: int = 0,
                             device=None) -> bytes:
     """Decompress a TurboRANS stream with the decode kernels.
 
@@ -534,12 +636,13 @@ def turbo_decompress_device(blob: bytes, mesh: int = 0, windows: int = 0,
     speed-mode groups and totals groups through rans_decode_v2 or
     rans_decode_w (windows picks the entry as the JAX package does, see
     _window_dispatch; both entries run the same CUDA kernel for a wire),
-    and v1 groups (ratio mode, byte or pair) through rans_decode.  Raises
-    ValueError on a corrupt group.  device: as turbo_compress_device."""
-    if mesh > 1:
-        raise NotImplementedError(
-            "multi-device decompress arrives with ROADMAP.md queue A item 9")
+    and v1 groups (ratio mode, byte or pair) through rans_decode.  mesh > 1
+    splits each batch's groups over that many devices, as
+    turbo_compress_device does; there, as in the JAX package, speed-wire
+    batches all go through rans_decode_v2.  Raises ValueError on a corrupt
+    group.  device: as turbo_compress_device."""
     dev = resolve_device(device)
+    mesh_obj = _mesh_of(mesh, dev)
     with _stage("d_parse", dev):
         groups = parse_groups(blob)
         pieces, batches = plan_decode(groups)
@@ -551,37 +654,25 @@ def turbo_decompress_device(blob: bytes, mesh: int = 0, windows: int = 0,
         with _stage("d_stage", dev):
             cs, tbl, init, hws, tots, t4, hrows = stage_decode_batch(
                 groups, idxs, n_pad, tlog, wire, kind)
-        with _stage("d_h2d", dev):
-            ins = to_tensors(dev, csize_hw=cs, tables=tbl, init_states=init,
-                             streams=hws)
-            if kind:
-                steptots = to_tensors(dev, steptots=tots)["steptots"]
-        args = (ins["csize_hw"], ins["tables"], ins["init_states"],
-                ins["streams"])
-        is_pair = wire == "pair"
-        with _stage("d_kernel", dev):
-            if kind == 0:       # v1: rank and cursor chain in the kernel
-                outw, err = rans_decode(*args, t4, hrows, is_pair, tlog,
-                                        False, is_pair)
-            else:
-                modes = dict(u16=is_pair, pair=is_pair, quad=wire == "quad")
-                w_nway, w_s = _window_dispatch(windows, t4, hrows, tlog, G,
-                                               kind == 1, **modes)
-                if w_nway:
-                    debuglog(2, "turbo decode: rans_decode_w entry "
-                                "(windows=%d, t4=%d, G=%d, wire=%s)",
-                             windows, t4, G, wire)
-                    outw, err = rans_decode_w(*args, steptots, t4, hrows,
-                                              w_nway, tlog, w_s, **modes)
-                else:
-                    outw, err = rans_decode_v2(*args, steptots, t4, hrows,
-                                               tlog, **modes)
+        if mesh_obj is not None:
+            with _stage("d_kernel", dev):
+                outw, err = _mesh_decode(mesh_obj, wire, cs, tbl, init, hws,
+                                         tots, t4, hrows, tlog)
+        else:
+            with _stage("d_h2d", dev):
+                ins = to_tensors(dev, csize_hw=cs, tables=tbl,
+                                 init_states=init, streams=hws)
+                steptots = (to_tensors(dev, steptots=tots)["steptots"]
+                            if kind else None)
+            with _stage("d_kernel", dev):
+                outw, err = _decode_batch(wire, tuple(ins.values()), steptots,
+                                          t4, hrows, tlog, windows)
         with _stage("d_d2h", dev):
-            err = err.cpu().numpy()
+            err = err[:G].cpu().numpy()
             if err.any():
                 raise ValueError(
                     f"turbo-rans device decode: corrupt groups {np.nonzero(err)[0]}")
-            outw = outw.cpu().numpy()
+            outw = outw[:G].cpu().numpy()
         with _stage("d_copy", dev):
             for j, i in enumerate(idxs):
                 pieces[i] = _group_bytes(wire, groups[i], outw[j])

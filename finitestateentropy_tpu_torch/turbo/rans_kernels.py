@@ -1,13 +1,17 @@
 """TurboRANS kernel wrappers: the CUDA kernels and their plain PyTorch versions.
 
 The entries keep the JAX package's names, argument order (less the
-TPU-only ``interpret`` and the modes not ported yet), output shapes and
-dtypes (i32 holding u32 bit patterns):
+TPU-only ``interpret``), output shapes and dtypes (i32 holding u32 bit
+patterns):
 
-* ``rans_encode2`` -> csrc/rans_encode.cu (replaces _rans_encode_rl_kernel):
-  the packed speed-mode wire, two halfwords per output word;
+* ``rans_encode2`` -> csrc/rans_encode.cu (replaces _rans_encode_rl_kernel,
+  rowloc=True, and _rans_encode2_kernel, rowloc=False: the same wire, two
+  halfwords per output word, placed row by row or by a flat binary search
+  on the TPU; each lane stores its own halfword here, so both placements
+  launch the one kernel);
 * ``rans_encode`` -> csrc/rans_encode.cu (replaces _rans_encode_kernel): the
-  U16 codec's encode, one halfword per output i32;
+  v1 encode, one halfword per output i32 (the U16 codec's encode, and the
+  byte mode that the JAX package's encode parity test runs);
 * ``rans_decode_v2`` and ``rans_decode_w`` on the rows wire ([G,T,8] shipped
   row counts) -> csrc/rans_decode.cu (replace _rans_decode_v2_kernel and
   _rans_decode_w_kernel, which compute the same function; the port keeps
@@ -33,12 +37,19 @@ Wire modes, named by the JAX wrappers' flags:
 
 A step is t = spc*t4 + p.  Pair and quad decode tables carry the 256-entry
 id LUT after the main table (tables.pack_pair_dtable / pack_quad_dtable).
-The totals wire is byte-only, as the JAX package writes it.
+The totals wire is byte-only, as the JAX package writes it.  The encodes
+take the mode from the table width as the JAX kernels do: 2 chunks (256
+entries) byte, pair (``u16=True``) or quad; 8 chunks u16; 32 chunks u16x.
 
 On CPU tensors a wrapper runs the plain PyTorch version beside it; on CUDA
 tensors it launches the kernel, or raises.  ``launches`` counts kernel
-launches per entry and mode ("rans_encode2:quad", "rans_decode_w:totals");
-nothing else adds to it.
+launches per entry and mode ("rans_encode2:quad", "rans_encode2_flat:byte"
+for the flat placement, "rans_decode_w:totals"; turbo/kernels.py adds
+"turbo_fse_decode:v0"); nothing else adds to it.  LAUNCH_MODES lists the
+modes the package's paths launch; the other combinations the JAX kernels
+accept (the flat placement on the pair and quad wires, the row-local one
+with u16 tables, the v1 encode of pair ids) launch the same kernel and
+count under their own keys.
 
 The plain versions work in int64 with explicit 32-bit masks: torch's ``>>``
 on int32 is arithmetic and uint32 has little support, while encoder states
@@ -59,8 +70,10 @@ from .tables import _enc_chunking, stream_word_rows, tch_of
 SPC = {"byte": 4, "pair": 2, "quad": 1, "u16": 2, "u16x": 2}
 # the modes each entry launches in; "totals" is the totals wire (byte symbols)
 LAUNCH_MODES = {
-    "rans_encode2": ("byte", "pair", "quad"),
-    "rans_encode": ("u16", "u16x"),
+    "rans_encode2": ("byte", "pair", "quad"),          # row-local placement
+    "rans_encode2_flat": ("byte", "u16", "u16x"),      # flat placement (mesh)
+    "rans_encode": ("byte", "u16", "u16x"),
+    "turbo_fse_decode": ("v0",),                       # turbo/kernels.py
     "rans_decode_v2": ("byte", "pair", "quad", "totals", "u16", "u16x"),
     "rans_decode_w": ("byte", "pair", "quad", "totals", "u16", "u16x"),
     "rans_decode": ("byte", "pair", "u16", "u16x"),
@@ -72,20 +85,25 @@ _M32 = 0xFFFFFFFF
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {   # C entry -> (library, argument types)
     "rans_encode_launch": (
-        "rans_encode", [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "rans_encode16_launch": (
-        "rans_encode", [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
+        "rans_encode",
+        [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "rans_decode_launch": (
         "rans_decode", [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "rans_decode_flat_launch": (
         "rans_decode_flat",
         [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "turbo_fse_decode_launch": (        # turbo/kernels.py
+        "turbo_fse_decode", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P]),
 }
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def count_launch(key: str) -> None:
+    launches[key] = launches.get(key, 0) + 1
 
 
 def _mode(u16: bool, pair: bool, quad: bool, u16x: bool = False) -> str:
@@ -216,139 +234,139 @@ def _encode_plain(fc_tables, magic_tables, src_words, t4_count: int,
             stots)
 
 
+def _encode_mode(fc_tables, magic_tables, src_words, t4_count: int,
+                 u16: bool, quad: bool = False) -> str:
+    """The encode mode from the tables' width, as the JAX kernels read it:
+    2 chunks (256 entries) byte, pair (u16) or quad; 8 chunks (u16 symbols
+    <= 1023) u16; 32 chunks (u16 symbols <= 4095, 14-bit fields) u16x.
+    Checks the inputs' shapes and types."""
+    G = fc_tables.shape[0]
+    nch = fc_tables.shape[1] if fc_tables.dim() == 3 else 0
+    if nch == 2:
+        mode = "quad" if quad else "pair" if u16 else "byte"
+    elif nch in (8, 32) and u16 and not quad:
+        mode = "u16" if nch == 8 else "u16x"
+    else:
+        raise ValueError(f"fc_tables: expected [G, 2, 128], or [G, 8 or 32, "
+                         f"128] with u16=True; got {tuple(fc_tables.shape)}")
+    _check(fc_tables, "fc_tables", (G, nch, 128))
+    _check(magic_tables, "magic_tables", (G, nch, 128))
+    _check(src_words, "src_words", (G, t4_count * 8, 128))
+    return mode
+
+
 def rans_encode2_plain(fc_tables, magic_tables, src_words, t4_count: int,
                        hrows_cap: int, tlog: int = RANS_TABLELOG,
-                       u16: bool = False, quad: bool = False):
-    """Plain PyTorch version of rans_encode2's kernel (same inputs, outputs)."""
-    spc = SPC[_mode(u16, u16, quad)]
+                       u16: bool = False, quad: bool = False,
+                       steptots: bool = True, force_chunk: int = 0,
+                       rowloc: bool = False):
+    """Plain PyTorch version of rans_encode2's kernel (same inputs, outputs;
+    the placement flag changes nothing in them)."""
+    mode = _encode_mode(fc_tables, magic_tables, src_words, t4_count, u16, quad)
+    _enc_chunking(t4_count, SPC[mode], force_chunk)
     G = fc_tables.shape[0]
     srows = stream_word_rows(hrows_cap)
     hw, fin, csize, stots = _encode_plain(fc_tables, magic_tables, src_words,
-                                          t4_count, srows * 256, tlog, spc)
+                                          t4_count, srows * 256, tlog, SPC[mode])
     pairs = hw.view(G, srows * 128, 2)
     stream = _i32(pairs[..., 0] | (pairs[..., 1] << 16)).view(G, srows, 128)
-    return stream, fin, csize, stots
+    return stream, fin, csize, stots if steptots else None
 
 
 def _encode_kernel(fc_tables, magic_tables, src_words, t4_count: int,
-                   hrows_cap: int, tlog: int, mode: str):
+                   hrows_cap: int, tlog: int, mode: str, packed: bool = True,
+                   steptots: bool = True):
+    """The encode kernel (csrc/rans_encode.cu).  packed: rans_encode2's
+    wire, stream_word_rows(hrows_cap) rows of two halfwords per word; else
+    rans_encode's, hrows_cap rows of one halfword per i32."""
     G = fc_tables.shape[0]
     dev = fc_tables.device
     spc = SPC[mode]
-    srows = stream_word_rows(hrows_cap)
-    stream = torch.zeros((G, srows, 128), dtype=torch.int32, device=dev)
+    rows = stream_word_rows(hrows_cap) if packed else hrows_cap
+    stream = torch.zeros((G, rows, 128), dtype=torch.int32, device=dev)
     finals = torch.empty((G, 8, 128), dtype=torch.int32, device=dev)
     csize = torch.empty((G,), dtype=torch.int32, device=dev)
-    stots = torch.empty((G, spc * t4_count, 8), dtype=torch.int32, device=dev)
+    stots = (torch.empty((G, spc * t4_count, 8), dtype=torch.int32, device=dev)
+             if steptots else None)
     fc, mg, src = (a.contiguous() for a in (fc_tables, magic_tables, src_words))
     with torch.cuda.device(dev):
         _launch("rans_encode_launch", fc.data_ptr(), mg.data_ptr(),
-                src.data_ptr(), stream.data_ptr(), srows * 256,
-                finals.data_ptr(), csize.data_ptr(), stots.data_ptr(), G,
-                t4_count, tlog, spc, _stream_of(dev))
+                src.data_ptr(), stream.data_ptr(),
+                rows * 128 * (2 if packed else 1), finals.data_ptr(),
+                csize.data_ptr(), None if stots is None else stots.data_ptr(),
+                G, t4_count, tlog, spc, fc.shape[1], int(packed),
+                _stream_of(dev))
     return stream, finals, csize, stots
 
 
 def rans_encode2(fc_tables, magic_tables, src_words, t4_count: int,
                  hrows_cap: int, tlog: int = RANS_TABLELOG,
-                 u16: bool = False, quad: bool = False):
-    """Encode of G groups on the byte, pair (u16) or quad wire.
+                 u16: bool = False, quad: bool = False,
+                 steptots: bool = True, force_chunk: int = 0,
+                 rowloc: bool = False):
+    """Packed-out encode of G groups: the speed and ratio wires, byte, pair
+    (u16=True on 2-chunk tables), quad, u16 and u16x.
 
-    fc_tables[G,2,128] i32 ((cumul<<12)|freq); magic_tables[G,2,128] i32
-    (floor(2^32/freq), clipped); src_words[G, t4_count*8, 128] i32 (4
-    bytes, 2 pair ids or 1 quad id per word, lane layout of
-    turbo/format.py).  Returns (stream[G, stream_word_rows(hrows_cap), 128]
-    i32 — 2 LE halfwords per word, the wire payload is these words' first
-    csize*2 bytes, zero beyond —, finals[G,8,128] i32, csize_hw[G] i32,
-    stots[G, spc*t4_count, 8] i32 per-step per-row renorm counts).  The
-    frames of every speed and ratio mode come from this one encode: ratio
-    frames drop the counts, totals frames ship their sums."""
-    G = fc_tables.shape[0]
-    mode = _mode(u16, u16, quad)
-    _enc_chunking(t4_count, SPC[mode])  # frame-shaping rule: raises on misfit
-    # 256-entry tables only: the U16 codec encodes through rans_encode
-    _check(fc_tables, "fc_tables", (G, 2, 128))
-    _check(magic_tables, "magic_tables", (G, 2, 128))
-    _check(src_words, "src_words", (G, t4_count * 8, 128))
+    fc_tables[G,nch,128] i32 ((cumul<<12)|freq; (cumul<<14)|freq at 32
+    chunks); magic_tables the same shape (floor(2^32/freq), clipped);
+    src_words[G, t4_count*8, 128] i32 (4 bytes, 2 pair ids or u16 symbols,
+    or 1 quad id per word, lane layout of turbo/format.py).  Returns
+    (stream[G, stream_word_rows(hrows_cap), 128] i32 — 2 LE halfwords per
+    word, the wire payload is these words' first csize*2 bytes, zero
+    beyond —, finals[G,8,128] i32, csize_hw[G] i32, stots[G,
+    spc*t4_count, 8] i32 per-step per-row renorm counts, or None when
+    steptots is False).  rowloc names the JAX kernel the call replaces (the
+    row-local or the flat placement) and the launch count it adds to; the
+    output is the same.  force_chunk (tests only) shrinks the JAX kernel's
+    source chunk: the output is the same, but the chunking rule still
+    holds."""
+    mode = _encode_mode(fc_tables, magic_tables, src_words, t4_count, u16, quad)
+    _enc_chunking(t4_count, SPC[mode], force_chunk)  # frame-shaping rule
     if not _on_cuda(fc_tables, magic_tables, src_words):
-        return rans_encode2_plain(fc_tables, magic_tables, src_words,
-                                  t4_count, hrows_cap, tlog, u16, quad)
+        return rans_encode2_plain(fc_tables, magic_tables, src_words, t4_count,
+                                  hrows_cap, tlog, u16, quad, steptots)
     out = _encode_kernel(fc_tables, magic_tables, src_words, t4_count,
-                         hrows_cap, tlog, mode)
-    launches[f"rans_encode2:{mode}"] += 1
+                         hrows_cap, tlog, mode, True, steptots)
+    count_launch(f"rans_encode2{'' if rowloc else '_flat'}:{mode}")
     return out
-
-
-def _encode16_mode(fc_tables, magic_tables, src_words, t4_count: int,
-                   u16: bool) -> str:
-    """The U16 encode's mode from its tables' width: 8 chunks (1024
-    symbols) u16, 32 chunks (4096 symbols, 14-bit fields) u16x."""
-    if not u16:
-        raise NotImplementedError(
-            "rans_encode of byte symbols serves only the multi-device "
-            "compress, which arrives with ROADMAP.md queue A item 9")
-    G = fc_tables.shape[0]
-    nch = fc_tables.shape[1] if fc_tables.dim() == 3 else 0
-    if nch not in (8, 32):
-        raise ValueError(f"fc_tables: expected [G, 8 or 32, 128], got "
-                         f"{tuple(fc_tables.shape)}")
-    _check(fc_tables, "fc_tables", (G, nch, 128))
-    _check(magic_tables, "magic_tables", (G, nch, 128))
-    _check(src_words, "src_words", (G, t4_count * 8, 128))
-    return "u16" if nch == 8 else "u16x"
 
 
 def rans_encode_plain(fc_tables, magic_tables, src_words, t4_count: int,
                       hrows_cap: int, u16: bool = False,
                       tlog: int = RANS_TABLELOG, steptots: bool = True):
     """Plain PyTorch version of rans_encode's kernel (same inputs, outputs)."""
-    _encode16_mode(fc_tables, magic_tables, src_words, t4_count, u16)
+    mode = _encode_mode(fc_tables, magic_tables, src_words, t4_count, u16)
     G = fc_tables.shape[0]
     hw, fin, csize, stots = _encode_plain(fc_tables, magic_tables, src_words,
-                                          t4_count, hrows_cap * 128, tlog, 2)
+                                          t4_count, hrows_cap * 128, tlog,
+                                          SPC[mode])
     return (hw.to(torch.int32).view(G, hrows_cap, 128), fin, csize,
             stots if steptots else None)
-
-
-def _encode16_kernel(fc_tables, magic_tables, src_words, t4_count: int,
-                     hrows_cap: int, tlog: int, mode: str):
-    G = fc_tables.shape[0]
-    dev = fc_tables.device
-    stream = torch.zeros((G, hrows_cap, 128), dtype=torch.int32, device=dev)
-    finals = torch.empty((G, 8, 128), dtype=torch.int32, device=dev)
-    csize = torch.empty((G,), dtype=torch.int32, device=dev)
-    stots = torch.empty((G, 2 * t4_count, 8), dtype=torch.int32, device=dev)
-    fc, mg, src = (a.contiguous() for a in (fc_tables, magic_tables, src_words))
-    with torch.cuda.device(dev):
-        _launch("rans_encode16_launch", fc.data_ptr(), mg.data_ptr(),
-                src.data_ptr(), stream.data_ptr(), hrows_cap * 128,
-                finals.data_ptr(), csize.data_ptr(), stots.data_ptr(), G,
-                t4_count, tlog, fc_tables.shape[1], _stream_of(dev))
-    return stream, finals, csize, stots
 
 
 def rans_encode(fc_tables, magic_tables, src_words, t4_count: int,
                 hrows_cap: int, u16: bool = False,
                 tlog: int = RANS_TABLELOG, steptots: bool = True):
-    """The U16 codec's encode (the JAX v1 encode entry) of G groups.
+    """The v1 encode (the JAX rans_encode entry) of G groups: byte symbols
+    on 2-chunk tables (u16=False), u16 symbols <= 1023 on 8-chunk tables
+    and <= 4095 on 32-chunk ones (u16=True).
 
-    fc_tables[G,8,128] i32 ((cumul<<12)|freq, symbols <= 1023) or
-    [G,32,128] ((cumul<<14)|freq, symbols <= 4095); magic_tables the same
-    shape (floor(2^32/freq), clipped); src_words[G, t4_count*8, 128] i32 (2
-    u16 symbols per word, the lane layout of turbo/rans16.py).  Returns
-    (stream[G, hrows_cap, 128] i32 — one halfword per entry, in order; the
-    wire payload is the first csize_hw entries, zero beyond —,
-    finals[G,8,128] i32, csize_hw[G] i32, stots[G, 2*t4_count, 8] i32 or
-    None when steptots is False).  Only u16=True is ported: the byte mode
-    serves the multi-device compress (ROADMAP.md queue A item 9)."""
-    mode = _encode16_mode(fc_tables, magic_tables, src_words, t4_count, u16)
+    Tables and src_words as rans_encode2's (2 u16 symbols per word in the
+    u16 modes, the lane layout of turbo/rans16.py).  Returns (stream[G,
+    hrows_cap, 128] i32 — one halfword per entry, in order; the wire
+    payload is the first csize_hw entries, zero beyond —, finals[G,8,128]
+    i32, csize_hw[G] i32, stots[G, spc*t4_count, 8] i32 or None when
+    steptots is False).  The U16 codec encodes through it; the byte mode's
+    callers in the JAX package are its encode parity test and fullbench
+    stage 205 (the multi-device compress runs rans_encode2)."""
+    mode = _encode_mode(fc_tables, magic_tables, src_words, t4_count, u16)
     if not _on_cuda(fc_tables, magic_tables, src_words):
         return rans_encode_plain(fc_tables, magic_tables, src_words, t4_count,
                                  hrows_cap, u16, tlog, steptots)
-    stream, fin, csize, stots = _encode16_kernel(
-        fc_tables, magic_tables, src_words, t4_count, hrows_cap, tlog, mode)
-    launches[f"rans_encode:{mode}"] += 1
-    return stream, fin, csize, stots if steptots else None
+    out = _encode_kernel(fc_tables, magic_tables, src_words, t4_count,
+                         hrows_cap, tlog, mode, False, steptots)
+    count_launch(f"rans_encode:{mode}")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,9 @@ LAYOUTS = {
                            #   or u16 symbols (pair, u16, u16x) or 1 quad id
                            #   (quad) per word
     "csize_hw": (1,),      # [G]  stream halfwords
+    "csize_bits": (1,),    # [G]  v0 stream bits (turbo/kernels.py)
     "tables": (3,),        # byte: [G, tch, 128]  (cumul << 20) | (freq << 8) | sym
+                           # v0: [G, 16, 128]  (base << 16) | (nb << 8) | sym
                            # pair, quad: [G, tch+2, 128]  (id << 2*tlog) |
                            #   (freq << tlog) | (slot - cumul), then the
                            #   256-entry id LUT (u16 pair / u32 quad values)
@@ -33,7 +35,8 @@ LAYOUTS = {
                            # u16x: [G, 2*tch, 128]  (freq << 13) | (slot -
                            #   cumul), then the symbol of each slot
     "init_states": (3,),   # [G, 8, 128]  decoder initial states
-    "streams": (3,),       # [G, srows, 128]  packed payload words
+    "streams": (3,),       # [G, srows, 128]  packed payload words (v0:
+                           #   [G, wrows, 128] u32 bit-stream words)
     "steptots": (2, 3),    # [G, T, 8]  per-step per-row renorm counts
                            #   (FLAG_STEPTOTS), or [G, T] per-step totals
                            #   (FLAG_TOTALS)

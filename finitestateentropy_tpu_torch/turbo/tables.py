@@ -32,13 +32,13 @@ def pack_stream_words(payload: bytes, srows: int) -> np.ndarray:
     return out.reshape(srows, 128)
 
 
-def _enc_chunking(t4_count: int, spc: int) -> tuple[int, int]:
+def _enc_chunking(t4_count: int, spc: int, force_chunk: int = 0) -> tuple[int, int]:
     """(chunk_t4, n_chunks): the JAX encoder chunks src reads when a group
     exceeds 1 MiB of supercycles.  The CUDA encoder runs one loop over all
     steps, but the rule shapes which group sizes are legal, so it stays.
-    (The original's force_chunk, a test hook for interpret mode, is not
-    copied.)"""
-    max_chunk = 256                           # ~1 MiB of src per chunk
+    force_chunk (tests only) shrinks the chunk span; it changes no output,
+    but a group that does not fit the span still raises."""
+    max_chunk = force_chunk or 256            # ~1 MiB of src per chunk
     if t4_count <= max_chunk:
         return t4_count, 1
     if t4_count % max_chunk:

@@ -168,12 +168,15 @@ def _mode_twin(data, kw):
                                 dict(pair=1, steptots=False)])
 def test_unported_modes_raise(kw):
     """The modes that the first slices left unported: ratio mode and the
-    totals wire now write the JAX twin's frames; only mesh > 1 still
-    raises (ROADMAP.md queue A item 9)."""
+    totals wire write the JAX twin's frames; mesh > 1 (on a CPU mesh here)
+    writes the single-device frames and decodes them back."""
     data = b"abc" * 1000
     if kw.get("mesh"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            turbo_compress_device(data, device="cpu", **kw)
+        one = turbo_compress_device(data, device="cpu",
+                                    **{k: v for k, v in kw.items() if k != "mesh"})
+        port = turbo_compress_device(data, device="cpu", **kw)
+        assert port == one
+        assert decompress(port, mesh=kw["mesh"]) == data
         return
     port = turbo_compress_device(data, device="cpu", **kw)
     assert port == _mode_twin(data, kw)
@@ -182,15 +185,15 @@ def test_unported_modes_raise(kw):
 
 def test_unported_frames_raise():
     """v1 (ratio mode, byte and pair) and FLAG_TOTALS frames, which the
-    first slices refused, now decode; mesh > 1 still raises."""
+    first slices refused, decode; so do frames decoded over a mesh."""
     from finitestateentropy_tpu.turbo.pair import pair_compress as j_pair_twin
 
     data = generate_proba(80, 20000)
     for blob in (j_twin(data, steptots=False), j_twin(data, totals_only=True),
                  j_pair_twin(data, steptots=False)):     # v1 pair frame
         assert decompress(blob) == data
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        decompress(compress(data), mesh=2)
+        assert decompress(blob, mesh=2) == data
+    assert decompress(compress(data), mesh=2) == data
 
 
 MODES = {"ratio": dict(steptots=False), "totals": dict(totals_only=True),

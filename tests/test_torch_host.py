@@ -10,8 +10,10 @@ import pytest
 import finitestateentropy_tpu.refimpl.hist as j_hist
 import finitestateentropy_tpu.refimpl.ncount as j_ncount
 import finitestateentropy_tpu.refimpl.norm as j_norm
+import finitestateentropy_tpu.refimpl.tables as j_tables
 import finitestateentropy_tpu.turbo.api as j_api
 import finitestateentropy_tpu.turbo.format as j_format
+import finitestateentropy_tpu.turbo.kernels as j_v0
 import finitestateentropy_tpu.turbo.pair as j_pair
 import finitestateentropy_tpu.turbo.quad as j_quad
 import finitestateentropy_tpu.turbo.rans as j_rans
@@ -21,8 +23,10 @@ import finitestateentropy_tpu.utils.probagen as j_probagen
 import finitestateentropy_tpu_torch.refimpl.hist as p_hist
 import finitestateentropy_tpu_torch.refimpl.ncount as p_ncount
 import finitestateentropy_tpu_torch.refimpl.norm as p_norm
+import finitestateentropy_tpu_torch.refimpl.tables as p_fse_tables
 import finitestateentropy_tpu_torch.turbo.api as p_api
 import finitestateentropy_tpu_torch.turbo.format as p_format
+import finitestateentropy_tpu_torch.turbo.kernels as p_v0
 import finitestateentropy_tpu_torch.turbo.pair as p_pair
 import finitestateentropy_tpu_torch.turbo.quad as p_quad
 import finitestateentropy_tpu_torch.turbo.rans as p_rans
@@ -113,13 +117,14 @@ def test_stream_words_equal():
 def test_routing_helpers_equal():
     for t4 in (1, 3, 32, 64, 256, 512, 1024):
         for spc in (1, 2, 4):
-            try:
-                want = j_kern._enc_chunking(t4, spc)
-            except ValueError:
-                with pytest.raises(ValueError):
-                    p_tables._enc_chunking(t4, spc)
-            else:
-                assert p_tables._enc_chunking(t4, spc) == want
+            for force in (0, 1, 2, 3, 64):
+                try:
+                    want = j_kern._enc_chunking(t4, spc, force)
+                except ValueError:
+                    with pytest.raises(ValueError):
+                        p_tables._enc_chunking(t4, spc, force)
+                else:
+                    assert p_tables._enc_chunking(t4, spc, force) == want
     for per_group in (1, 10**5, 10**6, 1_400_000, 3 * 10**6, 10**7):
         assert j_kern._pick_nway(per_group) == p_tables._pick_nway(per_group)
     # every wire (byte, pair, quad, u16, u16x) x section (rows, totals)
@@ -365,3 +370,76 @@ def test_normalize_and_ncount_at_u16_widths():
     nc = p_ncount.fse_write_ncount(jn[0], 4095, 13)
     assert nc == j_ncount.fse_write_ncount(jn[0], 4095, 13)
     assert p_ncount.fse_read_ncount(nc + b"\0" * 8, 4095)[1] == 4095
+
+
+def _fields_equal(a, b) -> None:
+    """Two dataclass instances (CTable, DTable, TurboGroup) field by field."""
+    assert type(a).__name__ == type(b).__name__
+    for k, va in vars(a).items():
+        vb = vars(b)[k]
+        if isinstance(va, np.ndarray) or isinstance(vb, np.ndarray):
+            assert (va is None) == (vb is None), k
+            assert va is None or (va.dtype == vb.dtype
+                                  and np.array_equal(va, vb)), k
+        else:
+            assert va == vb, k
+
+
+@pytest.mark.parametrize("name", list(CORPORA))
+def test_fse_tables_copy_equal(name):
+    """refimpl/tables.py: the spread, build_ctable and build_dtable (and
+    the v0 decode's packed table) equal the originals at every tableLog."""
+    for want in (5, 8, 10, 11, 12):
+        d = _corpus(name)
+        tlog = max(want, j_norm.fse_min_table_log(len(d), int(d.max())))
+        norm, tlog = _norm(name, tlog)
+        msv = len(norm) - 1
+        assert np.array_equal(j_tables.spread_symbols(norm, msv, tlog),
+                              p_fse_tables.spread_symbols(norm, msv, tlog))
+        _fields_equal(j_tables.build_ctable(norm, msv, tlog),
+                      p_fse_tables.build_ctable(norm, msv, tlog))
+        _fields_equal(j_tables.build_dtable(norm, msv, tlog),
+                      p_fse_tables.build_dtable(norm, msv, tlog))
+        if tlog <= 11:
+            assert np.array_equal(j_v0.pack_dtable(norm, msv, tlog),
+                                  p_v0.pack_dtable(norm, msv, tlog))
+    for sym in (0, 7, 255):
+        _fields_equal(j_tables.build_ctable_rle(sym), p_fse_tables.build_ctable_rle(sym))
+        _fields_equal(j_tables.build_dtable_rle(sym), p_fse_tables.build_dtable_rle(sym))
+    for nb in (1, 5, 8):
+        _fields_equal(j_tables.build_ctable_raw(nb), p_fse_tables.build_ctable_raw(nb))
+        _fields_equal(j_tables.build_dtable_raw(nb), p_fse_tables.build_dtable_raw(nb))
+    for n in (0, 1, 2047, 2048, 100000):
+        assert j_v0.wrows_for(n) == p_v0.wrows_for(n)
+
+
+@pytest.mark.parametrize("name", list(CORPORA))
+def test_v0_format_copy_equal(name):
+    """turbo/format.py: the v0 frames of turbo_fse_compress, parse_group and
+    turbo_fse_decompress equal the originals, with the bit packers."""
+    for n in (1, 100, 12288, 65536, 200_000):
+        data = _corpus(name, 200_000)[:n].tobytes()
+        blob = p_format.turbo_fse_compress(data)
+        assert blob == j_format.turbo_fse_compress(data)
+        jg, jused = j_format.parse_group(blob)
+        pg, pused = p_format.parse_group(blob)
+        assert jused == pused
+        _fields_equal(jg, pg)
+        assert p_format.turbo_fse_decompress(blob) == data \
+            == j_format.turbo_fse_decompress(blob)
+    for data in (b"", b"Q" * 5000):
+        blob = p_format.turbo_fse_compress(data)
+        assert blob == j_format.turbo_fse_compress(data)
+        assert p_format.turbo_fse_decompress(blob) == data
+    rng = np.random.default_rng(9)
+    nbs = rng.integers(0, 12, 3000)
+    vals = rng.integers(0, 1 << 11, 3000, dtype=np.uint64).astype(np.uint32)
+    jw, jt = j_format._pack_bits_forward(vals, nbs)
+    pw, pt = p_format._pack_bits_forward(vals, nbs)
+    assert jt == pt and np.array_equal(jw, pw)
+    offs = np.concatenate([[0], np.cumsum(nbs)[:-1]])
+    assert np.array_equal(j_format._read_fields(jw, offs, nbs),
+                          p_format._read_fields(pw, offs, nbs))
+    for k in ("TURBO_MAGIC", "TURBO_LANES", "TURBO_STEP_SYMS", "TURBO_TABLELOG",
+              "FLAG_RAW", "FLAG_RLE"):
+        assert getattr(p_format, k) == getattr(j_format, k)

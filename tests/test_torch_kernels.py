@@ -327,7 +327,7 @@ def test_cuda_encode_matches_plain(cuda):
     ins = to_tensors(cuda, fc_tables=fc, magic_tables=mg, src_words=srcw)
     args = (ins["fc_tables"], ins["magic_tables"], ins["src_words"], t4, hcap, 10)
     before = rk.launches["rans_encode2:byte"]
-    got = rk.rans_encode2(*args)
+    got = rk.rans_encode2(*args, rowloc=True)
     torch.cuda.synchronize()
     assert rk.launches["rans_encode2:byte"] == before + 1
     want = rk.rans_encode2_plain(*args)
@@ -372,7 +372,7 @@ def test_cuda_mode_encode_matches_plain(cuda, mode, flags, tlog):
     ins = to_tensors(cuda, fc_tables=fc, magic_tables=mg, src_words=srcw)
     args = (ins["fc_tables"], ins["magic_tables"], ins["src_words"], t4, hcap,
             tlog)
-    modes = dict(u16=mode == "pair", quad=mode == "quad")
+    modes = dict(u16=mode == "pair", quad=mode == "quad", rowloc=True)
     before = rk.launches[f"rans_encode2:{mode}"]
     got = rk.rans_encode2(*args, **modes)
     torch.cuda.synchronize()
