@@ -85,8 +85,10 @@ Phases, one result line each:
   6. end-to-end GB/s of the default-flag path (and of the byte wire), the
      entry points' own stage seconds on the default-flag path, per-step
      chain latencies (csrc/chain_probe.cu) and per-kernel-and-mode times
-     (CUDA events) at the shapes of the first path that launches each,
-     beside the GPU's name and power limit.
+     at the shapes of the first path that launches each: the wrapper's
+     launch call (CUDA events, mean of 20 calls, allocations included) and
+     each CUDA kernel's own device time (torch.profiler), beside the GPU's
+     name and power limit.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Any failure exits nonzero with no ok line,
 as does a machine without a CUDA device.
@@ -177,11 +179,44 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, kernel: str, reps: int) -> dict:
+    """Mean device time per launch of each CUDA kernel whose name holds
+    `kernel` (torch.profiler's CUDA trace of reps calls of fn, each
+    launching it once), without the wrapper's host work and allocations:
+    {kernel function: ms}, empty when the trace holds no such kernel."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _attempt in range(3):          # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", 0)
+            name = re.search(kernel + r"\w*", e.key)
+            if name and us:         # the mean launch: the trace may drop some
+                out[name.group(0)] = out.get(name.group(0), 0.0) + us / 1e3 / e.count
+        if out:
+            break
+    return out
+
+
 def max_abs_err(got, want) -> int:
     require(all((g is None) == (w is None) for g, w in zip(got, want)),
             "a kernel and its plain version disagree on which outputs exist")
     return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
                for g, w in zip(got, want) if g is not None)
+
+
+# source file -> the start of its kernel functions' names
+KERNEL_FN = {"rans_encode.cu": "rans_encode_", "rans_decode.cu": "rans_decode_rows",
+             "rans_decode_flat.cu": "rans_decode_flat",
+             "turbo_fse_decode.cu": "turbo_fse_decode"}
 
 
 def source_of(key: str) -> str:
@@ -234,8 +269,8 @@ def u16_corpus(n: int, wide: bool, seed: int = 0) -> np.ndarray:
 def chain_step_ns() -> dict:
     """ns per dependent step of each kind csrc/chain_probe.cu measures, on
     one block: shared-memory load, global load hitting L1, global load
-    hitting L2, and a barrier with a shared exchange at 128 and 1024
-    threads."""
+    hitting L2, a 1024-thread barrier with a shared exchange, the encoder's
+    state recurrence, and a multiply-add with a warp ballot and popcount."""
     from finitestateentropy_tpu_torch.turbo._build import load
 
     fn = load("chain_probe").chain_probe_launch
@@ -250,8 +285,8 @@ def chain_step_ns() -> dict:
 
     l1, l2 = chain(2048, 33), chain(1 << 22, 1056)   # 8 KiB; 16 MiB, a line a hop
     cases = {"smem": (0, l1, 128), "global_l1": (1, l1, 128),
-             "global_l2": (2, l2, 128), "barrier_128": (3, l1, 128),
-             "barrier_1024": (3, l1, 1024)}
+             "global_l2": (2, l2, 128), "barrier_1024": (3, l1, 1024),
+             "encode_step": (4, l1, 128), "mad_ballot": (5, l1, 128)}
     res = {}
     for name, (mode, buf, threads) in cases.items():
         def run(mode=mode, buf=buf, threads=threads):
@@ -909,8 +944,12 @@ def main() -> int:
                       "path": "default_p80_64MiB", "seconds": st}), flush=True)
 
     step_ns = chain_step_ns()
-    chain = {"encode": step_ns["barrier_1024"],
-             "rows": step_ns["smem"] + step_ns["barrier_128"] + step_ns["global_l1"],
+    # what a step of the function needs: the encoder's state recurrence;
+    # the rows decode's table read, state update with its ballot, and stream
+    # read (both shared: the window is staged); the flat-rank and v0
+    # decodes, not redesigned, keep their per-step barrier and L1 read
+    chain = {"encode": step_ns["encode_step"],
+             "rows": 2 * step_ns["smem"] + step_ns["mad_ballot"],
              "flat": step_ns["smem"] + step_ns["barrier_1024"] + step_ns["global_l1"]}
     print(json.dumps({"phase": "chain_probe", "gpu": gpu, "ns_per_step": step_ns,
                       "chain_step_ns": chain}), flush=True)
@@ -918,7 +957,8 @@ def main() -> int:
     rows = []
     for key in rk.launches:                    # every entry, every mode
         path, b = shapes[key]
-        ms = cuda_ms(b["kernel"], 5)
+        ms = cuda_ms(b["kernel"], 20)
+        dev_ms = device_ms(b["kernel"], KERNEL_FN[source_of(key).rsplit("/", 1)[1]], 5)
         plain_ms = cuda_ms(b["plain"], 1)
         nbytes = b["nbytes"](b["kernel"]())
         rows.append({"name": key, "route": "cuda", "source": source_of(key),
@@ -928,7 +968,9 @@ def main() -> int:
                      "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
                      **bound(nbytes, b["ops"], b["steps"], chain[b["chain"]], clock_hz),
                      "library_ms": None, "groups": b["G"], "steps": b["steps"],
-                     "ns_per_step": ms * 1e6 / b["steps"]})
+                     "ns_per_step": ms * 1e6 / b["steps"],
+                     "device_ms": sum(dev_ms.values()) if dev_ms else None,
+                     "device_ms_by_kernel": dev_ms})
     print(json.dumps({"phase": "kernel_times", "gpu": gpu,
                       "clocks_sm_power_draw": nvidia_smi("clocks.sm,clocks.max.sm,power.draw"),
                       "library": "no single PyTorch call computes rANS: library_ms is null"}),

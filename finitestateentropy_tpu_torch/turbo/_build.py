@@ -50,7 +50,8 @@ def build_all() -> dict[str, dict]:
     """Compile every source whose library is missing, in parallel.
 
     Returns {name: {"path", "seconds", "ptxas"}} for the sources built by
-    this call (ptxas lines list registers and shared memory per kernel).
+    this call (ptxas lines list registers, shared memory, stack and spills
+    per kernel).
     Raises RuntimeError with nvcc's output when a build fails."""
     todo = [n for n in SOURCES if not library_path(n).exists()]
     if not todo:
@@ -75,7 +76,7 @@ def build_all() -> dict[str, dict]:
         built[name] = {"path": str(library_path(name)),
                        "seconds": time.perf_counter() - t0,
                        "ptxas": [ln.strip() for ln in log.splitlines()
-                                 if "ptxas info" in ln]}
+                                 if "ptxas info" in ln or "stack frame" in ln]}
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return built

@@ -19,8 +19,7 @@ import torch
 
 from ..refimpl.tables import build_dtable
 from .format import TURBO_LANES, TURBO_STEP_SYMS, TURBO_TABLELOG, _pad_n
-from .rans_kernels import (_check, _i32, _launch, _on_cuda, _stream_of, _u32,
-                           count_launch)
+from .rans_kernels import _check, _i32, _launch, _on_cuda, _u32, count_launch
 
 TSIZE = 1 << TURBO_TABLELOG        # 2048
 TCHUNKS = TSIZE // 128             # 16
@@ -122,10 +121,9 @@ def _decode_v0_kernel(csize_bits, tables, init_states, streams,
     err = torch.empty((G,), dtype=torch.int32, device=dev)
     cs, tbl, ini, strm = (a.contiguous() for a in
                           (csize_bits, tables, init_states, streams))
-    with torch.cuda.device(dev):
-        _launch("turbo_fse_decode_launch", cs.data_ptr(), tbl.data_ptr(),
-                ini.data_ptr(), strm.data_ptr(), strm[0].numel(),
-                out.data_ptr(), err.data_ptr(), G, t4_count, _stream_of(dev))
+    _launch("turbo_fse_decode_launch", dev, cs.data_ptr(), tbl.data_ptr(),
+            ini.data_ptr(), strm.data_ptr(), strm[0].numel(), out.data_ptr(),
+            err.data_ptr(), G, t4_count)
     return out, err
 
 

@@ -7,8 +7,9 @@ patterns):
 * ``rans_encode2`` -> csrc/rans_encode.cu (replaces _rans_encode_rl_kernel,
   rowloc=True, and _rans_encode2_kernel, rowloc=False: the same wire, two
   halfwords per output word, placed row by row or by a flat binary search
-  on the TPU; each lane stores its own halfword here, so both placements
-  launch the one kernel);
+  on the TPU; here the chains stage each 32-lane sub-row's halfwords and
+  a placement kernel stores them where they go, so both placements launch
+  the same kernels: one call, one count);
 * ``rans_encode`` -> csrc/rans_encode.cu (replaces _rans_encode_kernel): the
   v1 encode, one halfword per output i32 (the U16 codec's encode, and the
   byte mode that the JAX package's encode parity test runs);
@@ -86,7 +87,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {   # C entry -> (library, argument types)
     "rans_encode_launch": (
         "rans_encode",
-        [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "rans_decode_launch": (
         "rans_decode", [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "rans_decode_flat_launch": (
@@ -161,18 +162,34 @@ def _check(t: torch.Tensor, name: str, shape: tuple) -> None:
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
 
 
-def _launch(fn_name: str, *args) -> None:
-    lib_name, argtypes = _SIGS[fn_name]
-    fn = getattr(load(lib_name), fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name}: CUDA launch failed (cudaError_t {rc})")
+_entries: dict[str, ctypes._CFuncPtr] = {}
 
 
 def _stream_of(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The raw cudaStream_t of dev's current stream: torch's raw accessor
+    where it has one, cheaper than building a Stream object (small
+    launches are host-bound)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(dev.index) if raw else torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch(fn_name: str, dev: torch.device, *args) -> None:
+    """Calls the C entry fn_name with args and dev's current stream, with
+    dev the current device."""
+    fn = _entries.get(fn_name)
+    if fn is None:
+        lib_name, argtypes = _SIGS[fn_name]
+        fn = getattr(load(lib_name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[fn_name] = fn
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, _stream_of(dev))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, _stream_of(dev))
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA launch failed (cudaError_t {rc})")
 
 
 # ---------------------------------------------------------------------------
@@ -276,26 +293,31 @@ def rans_encode2_plain(fc_tables, magic_tables, src_words, t4_count: int,
 def _encode_kernel(fc_tables, magic_tables, src_words, t4_count: int,
                    hrows_cap: int, tlog: int, mode: str, packed: bool = True,
                    steptots: bool = True):
-    """The encode kernel (csrc/rans_encode.cu).  packed: rans_encode2's
-    wire, stream_word_rows(hrows_cap) rows of two halfwords per word; else
-    rans_encode's, hrows_cap rows of one halfword per i32."""
+    """The encode kernels (csrc/rans_encode.cu: the state chains, the scan
+    of the step counts, the placement).  packed: rans_encode2's wire,
+    stream_word_rows(hrows_cap) rows of two halfwords per word; else
+    rans_encode's, hrows_cap rows of one halfword per i32.  Scratch: the
+    staged halfwords ([G, T, 32, 32]) and the counts and bases ([G, T, 32])
+    of each 32-lane sub-row and step."""
     G = fc_tables.shape[0]
     dev = fc_tables.device
-    spc = SPC[mode]
+    T = SPC[mode] * t4_count
     rows = stream_word_rows(hrows_cap) if packed else hrows_cap
     stream = torch.zeros((G, rows, 128), dtype=torch.int32, device=dev)
     finals = torch.empty((G, 8, 128), dtype=torch.int32, device=dev)
     csize = torch.empty((G,), dtype=torch.int32, device=dev)
-    stots = (torch.empty((G, spc * t4_count, 8), dtype=torch.int32, device=dev)
+    stots = (torch.empty((G, T, 8), dtype=torch.int32, device=dev)
              if steptots else None)
+    counts, base = (torch.empty((G, T, 32), dtype=torch.int32, device=dev)
+                    for _ in range(2))
+    stage = torch.empty((G, T, 32, 32), dtype=torch.int16, device=dev)
     fc, mg, src = (a.contiguous() for a in (fc_tables, magic_tables, src_words))
-    with torch.cuda.device(dev):
-        _launch("rans_encode_launch", fc.data_ptr(), mg.data_ptr(),
-                src.data_ptr(), stream.data_ptr(),
-                rows * 128 * (2 if packed else 1), finals.data_ptr(),
-                csize.data_ptr(), None if stots is None else stots.data_ptr(),
-                G, t4_count, tlog, spc, fc.shape[1], int(packed),
-                _stream_of(dev))
+    _launch("rans_encode_launch", dev, fc.data_ptr(), mg.data_ptr(),
+            src.data_ptr(), stream.data_ptr(),
+            rows * 128 * (2 if packed else 1), finals.data_ptr(),
+            csize.data_ptr(), None if stots is None else stots.data_ptr(),
+            counts.data_ptr(), stage.data_ptr(), base.data_ptr(), G, t4_count,
+            tlog, SPC[mode], fc.shape[1], int(packed))
     return stream, finals, csize, stots
 
 
@@ -465,12 +487,12 @@ def _decode_kernel(tables, init_states, streams, cursors, roff,
     out = torch.empty((G, t4_count * 8, 128), dtype=torch.int32, device=dev)
     res = torch.empty((G, 8, 128), dtype=torch.int32, device=dev)
     tbl, ini, strm = (a.contiguous() for a in (tables, init_states, streams))
-    with torch.cuda.device(dev):
-        _launch("rans_decode_launch", tbl.data_ptr(), tbl[0].numel(),
-                ini.data_ptr(), strm.data_ptr(), strm[0].numel() * 2,
-                cursors.data_ptr(), roff.data_ptr(), out.data_ptr(),
-                res.data_ptr(), G, t4_count, tlog, _MODE_ID[mode],
-                _stream_of(dev))
+    if strm.data_ptr() % 16:        # the kernel stages the stream in 16-byte copies
+        strm = strm.clone()
+    _launch("rans_decode_launch", dev, tbl.data_ptr(), tbl.shape[1] * 128,
+            ini.data_ptr(), strm.data_ptr(), strm.shape[1] * 256,
+            cursors.data_ptr(), roff.data_ptr(), out.data_ptr(),
+            res.data_ptr(), G, t4_count, tlog, _MODE_ID[mode])
     return out, res
 
 
@@ -487,12 +509,11 @@ def _decode_flat_kernel(tables, init_states, streams, csize_hw, cursors,
     tbl, ini, strm, cs = (a.contiguous() for a in
                           (tables, init_states, streams, csize_hw))
     cur = None if cursors is None else cursors.contiguous()
-    with torch.cuda.device(dev):
-        _launch("rans_decode_flat_launch", tbl.data_ptr(), tbl[0].numel(),
-                ini.data_ptr(), strm.data_ptr(), strm[0].numel() * 2,
-                cs.data_ptr(), None if cur is None else cur.data_ptr(),
-                out.data_ptr(), res.data_ptr(), cend.data_ptr(), G, t4_count,
-                tlog, _MODE_ID[mode], _stream_of(dev))
+    _launch("rans_decode_flat_launch", dev, tbl.data_ptr(), tbl[0].numel(),
+            ini.data_ptr(), strm.data_ptr(), strm[0].numel() * 2,
+            cs.data_ptr(), None if cur is None else cur.data_ptr(),
+            out.data_ptr(), res.data_ptr(), cend.data_ptr(), G, t4_count,
+            tlog, _MODE_ID[mode])
     return out, res, cend
 
 
