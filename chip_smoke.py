@@ -88,7 +88,9 @@ Phases, one result line each:
      at the shapes of the first path that launches each: the wrapper's
      launch call (CUDA events, mean of 20 calls, allocations included) and
      each CUDA kernel's own device time (torch.profiler), beside the GPU's
-     name and power limit.
+     name and power limit; the flat-rank and v0 rows carry the chain bound
+     of their former design, a 1024-thread block a group
+     (chain_bound_ms_1024), beside their own.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Any failure exits nonzero with no ok line,
 as does a machine without a CUDA device.
@@ -145,6 +147,8 @@ V0_OPS_PER_STEP = 20
 FLAT_LANE_OPS = 1
 FLAT_SCAN_ADDS = 31
 V0_MIB = 16                    # the v0 path: its only encoder is the numpy twin
+FLAT_THREADS = 512             # a group's block in csrc/rans_decode_flat.cu
+V0_THREADS = 256               # and in csrc/turbo_fse_decode.cu
 KERNEL_LINE = {  # entry -> TPU kernel, file:line in finitestateentropy_tpu/turbo/
     "rans_encode2": "rans_kernels.py:607", "rans_encode2_flat": "rans_kernels.py:473",
     "rans_encode": "rans_kernels.py:303", "rans_decode": "rans_kernels.py:182",
@@ -269,8 +273,9 @@ def u16_corpus(n: int, wide: bool, seed: int = 0) -> np.ndarray:
 def chain_step_ns() -> dict:
     """ns per dependent step of each kind csrc/chain_probe.cu measures, on
     one block: shared-memory load, global load hitting L1, global load
-    hitting L2, a 1024-thread barrier with a shared exchange, the encoder's
-    state recurrence, and a multiply-add with a warp ballot and popcount."""
+    hitting L2, a 1024-, 512- and 256-thread barrier with a shared
+    exchange, the encoder's state recurrence, and a multiply-add with a
+    warp ballot and popcount."""
     from finitestateentropy_tpu_torch.turbo._build import load
 
     fn = load("chain_probe").chain_probe_launch
@@ -286,6 +291,7 @@ def chain_step_ns() -> dict:
     l1, l2 = chain(2048, 33), chain(1 << 22, 1056)   # 8 KiB; 16 MiB, a line a hop
     cases = {"smem": (0, l1, 128), "global_l1": (1, l1, 128),
              "global_l2": (2, l2, 128), "barrier_1024": (3, l1, 1024),
+             "barrier_512": (3, l1, FLAT_THREADS), "barrier_256": (3, l1, V0_THREADS),
              "encode_step": (4, l1, 128), "mad_ballot": (5, l1, 128)}
     res = {}
     for name, (mode, buf, threads) in cases.items():
@@ -370,9 +376,9 @@ def main() -> int:
 
     def decompress(p: Piece, blob: bytes, windows: int):
         if p.codec == "turbo16":
-            return api.turbo16_decompress_device(blob, windows, device=DEV)
-        return api.turbo_decompress_device(blob, p.flags.get("mesh", 0),
-                                           windows, device=DEV)
+            return api.turbo16_decompress_device(blob, windows=windows, device=DEV)
+        return api.turbo_decompress_device(blob, mesh=p.flags.get("mesh", 0),
+                                           windows=windows, device=DEV)
 
     def same(p: Piece, back) -> bool:
         return (np.array_equal(back, p.data) if p.codec == "turbo16"
@@ -553,7 +559,7 @@ def main() -> int:
                     run=partial(v0.turbo_fse_decode, *args),
                     plain=partial(v0.turbo_fse_decode_plain, *args),
                     kernel=partial(v0._decode_v0_kernel, *args[:4], t4),
-                    streams=ins["streams"], mid_word=cs // 64, chain="flat",
+                    streams=ins["streams"], mid_word=cs // 64, chain="v0",
                     ops=G * 4 * t4 * (V0_OPS_PER_STEP * 1024 + FLAT_SCAN_ADDS),
                     nbytes=lambda o, nb=nb: nb)
 
@@ -946,11 +952,15 @@ def main() -> int:
     step_ns = chain_step_ns()
     # what a step of the function needs: the encoder's state recurrence;
     # the rows decode's table read, state update with its ballot, and stream
-    # read (both shared: the window is staged); the flat-rank and v0
-    # decodes, not redesigned, keep their per-step barrier and L1 read
-    chain = {"encode": step_ns["encode_step"],
-             "rows": 2 * step_ns["smem"] + step_ns["mad_ballot"],
-             "flat": step_ns["smem"] + step_ns["barrier_1024"] + step_ns["global_l1"]}
+    # read (both shared: the window is staged); the flat-rank and v0 decodes
+    # the same plus the exchange of the group's counts among the threads
+    # that hold it (their former chain, "flat_1024": a table read, the
+    # 1024-thread barrier and an L1 stream read, kept beside it)
+    rows_chain = 2 * step_ns["smem"] + step_ns["mad_ballot"]
+    chain = {"encode": step_ns["encode_step"], "rows": rows_chain,
+             "flat": rows_chain + step_ns["barrier_512"],
+             "v0": rows_chain + step_ns["barrier_256"],
+             "flat_1024": step_ns["smem"] + step_ns["barrier_1024"] + step_ns["global_l1"]}
     print(json.dumps({"phase": "chain_probe", "gpu": gpu, "ns_per_step": step_ns,
                       "chain_step_ns": chain}), flush=True)
 
@@ -961,13 +971,15 @@ def main() -> int:
         dev_ms = device_ms(b["kernel"], KERNEL_FN[source_of(key).rsplit("/", 1)[1]], 5)
         plain_ms = cuda_ms(b["plain"], 1)
         nbytes = b["nbytes"](b["kernel"]())
+        old = ({"chain_bound_ms_1024": b["steps"] * chain["flat_1024"] * 1e-6}
+               if b["chain"] in ("flat", "v0") else {})
         rows.append({"name": key, "route": "cuda", "source": source_of(key),
                      "replaces": replaces(key),
                      "path": path, "launches": launches.get(path, {}).get(key, 0),
                      "launches_by_path": {p: c.get(key, 0) for p, c in launches.items()},
                      "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
                      **bound(nbytes, b["ops"], b["steps"], chain[b["chain"]], clock_hz),
-                     "library_ms": None, "groups": b["G"], "steps": b["steps"],
+                     **old, "library_ms": None, "groups": b["G"], "steps": b["steps"],
                      "ns_per_step": ms * 1e6 / b["steps"],
                      "device_ms": sum(dev_ms.values()) if dev_ms else None,
                      "device_ms_by_kernel": dev_ms})

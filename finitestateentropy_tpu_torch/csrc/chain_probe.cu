@@ -10,8 +10,9 @@
 //           stay in L1 (the decoder's stream read at its best);
 //   mode 2: the same with __ldcg, which skips L1: an L2 hit;
 //   mode 3: a block barrier with a shared-memory exchange between warps,
-//           double-buffered by step parity (the flat-rank decodes' per-step
-//           rank scan);
+//           double-buffered by step parity (the flat-rank and v0 decodes'
+//           per-step exchange of row counts: 256 threads hold a group in
+//           their design, 1024 did before);
 //   mode 4: the encoder's state recurrence (rans_encode.cu): compare with
 //           the renorm threshold, conditional shift, __umulhi by the magic
 //           reciprocal, multiply-subtract, two corrections, shift-add;

@@ -55,10 +55,14 @@
 #include <cuda_runtime.h>
 
 #include "rans_step.cuh"
+#include "stage.cuh"
 
 namespace {
 
 using namespace rans_step;
+using stage::cp_async4;
+using stage::cp_async_commit;
+using stage::cp_async_wait_all;
 
 constexpr int kLanes = 1024;
 constexpr int kMaxTable = 2 * 8192;   // u16x at tlog 13
@@ -68,26 +72,6 @@ constexpr int kCap = kBatch * kLanes; // a well-formed window: a step reads <= 1
 constexpr int kMetaUsed = kBatch + 1 + 8 * kBatch;
 constexpr int kMeta = (kMetaUsed + 3) / 4 * 4;
 constexpr int kMaxThreads = 256;
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // The staged halfwords [lo, hi) of a batch, copied from `base` (lo rounded
 // down to 16 bytes): [cursor[cK+K], cursor[cK]) from the batch's meta chunk,
@@ -145,10 +129,8 @@ rans_decode_rows(const int32_t* __restrict__ tables, int table_words, int aux,
   };
   auto stage_window = [&](int c) {
     const Window wd = window_of(meta + (c % 3) * kMeta, c + 1 == batches, stream_hw, cap);
-    uint16_t* dst = win + (c & 1) * win_hw;
-    const int chunks = (((wd.hi + 7) & ~7) - wd.base) / 8;
-    for (int i = tid; i < chunks; i += nthreads)
-      cp_async16(dst + 8 * i, hw + wd.base + 8 * i);
+    stage::copy16(win + (c & 1) * win_hw, hw + wd.base,
+                  (((wd.hi + 7) & ~7) - wd.base) / 8, tid, nthreads);
   };
 
   if (batches > 0) {

@@ -10,7 +10,10 @@ sharded outputs onto the mesh's first device in group order.  JAX's
 collectives become reductions over the shards: ``psum`` of the compressed
 sizes a sum, ``pmax`` of the error flags a max, ``pmin`` of the checks a
 min.  Each function passes the placement, steptots setting and mode that
-its JAX original passes; the JAX-only ``interpret`` argument is dropped.
+its JAX original passes.  The four steps the entry points run
+(sharded_turbo_encode, _encode_v2, _decode, _decode_v2) take
+``interpret`` as their last parameter and pass it to the wrappers: True
+runs the plain PyTorch versions of the kernels.
 
 On a (dcn, ici) mesh across hosts (distributed.codec_mesh) each process
 runs the shards of its row only and the rows' results meet over the
@@ -106,7 +109,8 @@ def _ok(out, want, err) -> torch.Tensor:
 
 
 def sharded_turbo_encode(mesh: Mesh, t4_count: int, hrows_cap: int,
-                         tlog: int = 11, force_chunk: int = 0):
+                         tlog: int = 11, force_chunk: int = 0,
+                         interpret: bool = False):
     """(fc[G,2,128], mg[G,2,128], srcw[G,t4*8,128]) -> (stream, final_states,
     csize_hw gathered; total_hw summed): the ratio-mode encode (flat
     placement, no step counts), whose frames equal the single-device
@@ -115,21 +119,23 @@ def sharded_turbo_encode(mesh: Mesh, t4_count: int, hrows_cap: int,
     def local(fc, mg, srcw):
         stream, fin, csize, _ = rans_encode2(fc, mg, srcw, t4_count, hrows_cap,
                                              tlog, steptots=False,
-                                             force_chunk=force_chunk)
+                                             force_chunk=force_chunk,
+                                             interpret=interpret)
         return stream, fin, csize, csize.sum()
 
     return _step(mesh, local, ("sum",))
 
 
 def sharded_turbo_decode(mesh: Mesh, t4_count: int, hrows: int,
-                         tlog: int = 11, u16: bool = False, pair: bool = False):
+                         tlog: int = 11, u16: bool = False, pair: bool = False,
+                         interpret: bool = False):
     """(csize[G], tbl, init[G,8,128], hws[G,srows,128] packed payload words)
     -> (out, err gathered; any_err the max over the shards): the v1
     decode."""
 
     def local(cs, tbl, init, hws):
         out, err = rans_decode(cs, tbl, init, hws, t4_count, hrows, u16=u16,
-                               tlog=tlog, pair=pair)
+                               tlog=tlog, pair=pair, interpret=interpret)
         return out, err, err.abs().max()
 
     return _step(mesh, local, ("max",))
@@ -138,7 +144,7 @@ def sharded_turbo_decode(mesh: Mesh, t4_count: int, hrows: int,
 def sharded_turbo_encode_v2(mesh: Mesh, t4_count: int, hrows_cap: int,
                             tlog: int = 11, force_chunk: int = 0,
                             u16: bool = False, rowloc: bool = False,
-                            quad: bool = False):
+                            quad: bool = False, interpret: bool = False):
     """Speed-mode encode (FLAG_STEPTOTS wire): (fc, mg, srcw) -> (stream,
     final_states, csize_hw, steptots gathered; total_hw summed).  u16
     selects the 2-symbols-per-word source layout (U16 and pair wires);
@@ -147,7 +153,7 @@ def sharded_turbo_encode_v2(mesh: Mesh, t4_count: int, hrows_cap: int,
     def local(fc, mg, srcw):
         stream, fin, csize, stots = rans_encode2(
             fc, mg, srcw, t4_count, hrows_cap, tlog, u16=u16, quad=quad,
-            force_chunk=force_chunk, rowloc=rowloc)
+            force_chunk=force_chunk, rowloc=rowloc, interpret=interpret)
         return stream, fin, csize, stots, csize.sum()
 
     return _step(mesh, local, ("sum",))
@@ -155,13 +161,15 @@ def sharded_turbo_encode_v2(mesh: Mesh, t4_count: int, hrows_cap: int,
 
 def sharded_turbo_decode_v2(mesh: Mesh, t4_count: int, hrows: int,
                             tlog: int = 11, u16: bool = False,
-                            pair: bool = False, quad: bool = False):
+                            pair: bool = False, quad: bool = False,
+                            interpret: bool = False):
     """Speed-mode decode (shipped steptots): (csize, tbl, init, hws,
     steptots) -> (out, err gathered; any_err the max over the shards)."""
 
     def local(cs, tbl, init, hws, stots):
         out, err = rans_decode_v2(cs, tbl, init, hws, stots, t4_count, hrows,
-                                  tlog, u16=u16, pair=pair, quad=quad)
+                                  tlog, u16=u16, pair=pair, quad=quad,
+                                  interpret=interpret)
         return out, err, err.abs().max()
 
     return _step(mesh, local, ("max",))

@@ -350,6 +350,7 @@ def mode_flags(table_log: int, steptots: bool, totals_only: bool,
 
 
 def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
+                          interpret: bool = False,
                           table_log: int = 0,
                           steptots: bool = True, mesh: int | Mesh = 0,
                           totals_only: bool = False,
@@ -377,9 +378,12 @@ def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
     devices (parallel/turbo_dp.py; the frames are the same), or warns and
     runs on one device when fewer are attached; a parallel.mesh.Mesh is
     used as given (one of a single device still runs the sharded steps).
-    device: torch device for the kernels; None = cuda (raises without
-    one), "cpu" runs the plain PyTorch versions (a mesh of CPU entries,
-    for the tests)."""
+    interpret=True runs the plain PyTorch versions of the kernels on the
+    device (the counterpart of a Pallas kernel's body in the interpreter;
+    the frames are the same).  The parameters take the JAX entry's
+    positional order, with device last.  device: torch device for the
+    kernels; None = cuda (raises without one), "cpu" runs the plain
+    PyTorch versions (a mesh of CPU entries, for the tests)."""
     dev = resolve_device(device)
     mesh_obj = _mesh_of(mesh, dev)
     table_log, pair, quad = mode_flags(table_log, steptots, totals_only,
@@ -419,11 +423,12 @@ def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
                 stream, fin, csize, stots = rans_encode2(
                     ins["fc_tables"], ins["magic_tables"], ins["src_words"],
                     t4, hcap, tlog, u16=wire == "pair", quad=wire == "quad",
-                    steptots=st, rowloc=rowloc)
+                    steptots=st, rowloc=rowloc, interpret=interpret)
         else:
             with _stage("c_kernel", dev):
                 stream, fin, csize, stots = _mesh_encode(
-                    mesh_obj, wire, fc, mg, srcw, t4, hcap, tlog, steptots)
+                    mesh_obj, wire, fc, mg, srcw, t4, hcap, tlog, steptots,
+                    interpret)
         with _stage("c_d2h", dev):
             csize = csize[:G].cpu().numpy()
             # the payload is the first csize halfwords: copy only the words used
@@ -456,7 +461,7 @@ def encode_placement(wire: str, steptots: bool,
 
 
 def _mesh_encode(mesh_obj, wire: str, fc, mg, srcw, t4: int, hcap: int,
-                 tlog: int, steptots: bool):
+                 tlog: int, steptots: bool, interpret: bool = False):
     """A batch's encode over the mesh, as the JAX package's mesh branches
     run it: the groups padded to a multiple of the mesh size, the
     placement and steptots of encode_placement.  Returns the gathered
@@ -465,11 +470,11 @@ def _mesh_encode(mesh_obj, wire: str, fc, mg, srcw, t4: int, hcap: int,
     padded = _pad_groups([fc, mg, srcw], mesh_obj.devices.size)
     if not steptots:
         stream, fin, csize, _tot = sharded_turbo_encode(
-            mesh_obj, t4, hcap, tlog)(*padded)
+            mesh_obj, t4, hcap, tlog, interpret=interpret)(*padded)
         return stream, fin, csize, None
     step = sharded_turbo_encode_v2(mesh_obj, t4, hcap, tlog,
                                    u16=wire == "pair", rowloc=rowloc,
-                                   quad=wire == "quad")
+                                   quad=wire == "quad", interpret=interpret)
     stream, fin, csize, stots, _tot = step(*padded)
     return stream, fin, csize, stots
 
@@ -589,13 +594,14 @@ def _group_bytes(wire: str, g, words: np.ndarray) -> bytes:
 
 
 def _decode_batch(wire: str, args, steptots, t4: int, hrows: int, tlog: int,
-                  windows: int):
+                  windows: int, interpret: bool = False):
     """One decode batch on one device: v1 groups (steptots None) through
     rans_decode, the others through the entry _window_dispatch picks.
     args: (csize_hw, tables, init_states, streams) tensors."""
     is_pair = wire == "pair"
     if steptots is None:        # v1: rank and cursor chain in the kernel
-        return rans_decode(*args, t4, hrows, is_pair, tlog, False, is_pair)
+        return rans_decode(*args, t4, hrows, is_pair, tlog, False, is_pair,
+                           interpret=interpret)
     G = args[0].shape[0]
     modes = dict(u16=is_pair, pair=is_pair, quad=wire == "quad")
     w_nway, w_s = _window_dispatch(windows, t4, hrows, tlog, G,
@@ -604,12 +610,13 @@ def _decode_batch(wire: str, args, steptots, t4: int, hrows: int, tlog: int,
         debuglog(2, "turbo decode: rans_decode_w entry (windows=%d, t4=%d, "
                     "G=%d, wire=%s)", windows, t4, G, wire)
         return rans_decode_w(*args, steptots, t4, hrows, w_nway, tlog, w_s,
-                             **modes)
-    return rans_decode_v2(*args, steptots, t4, hrows, tlog, **modes)
+                             **modes, interpret=interpret)
+    return rans_decode_v2(*args, steptots, t4, hrows, tlog, **modes,
+                          interpret=interpret)
 
 
 def _mesh_decode(mesh_obj, wire: str, cs, tbl, init, hws, tots, t4: int,
-                 hrows: int, tlog: int):
+                 hrows: int, tlog: int, interpret: bool = False):
     """A decode batch over the mesh, as the JAX package's mesh branch runs
     it (JAX api.py:643-670): the groups padded to a multiple of the mesh
     size; v1 groups through rans_decode, the others through
@@ -619,16 +626,18 @@ def _mesh_decode(mesh_obj, wire: str, cs, tbl, init, hws, tots, t4: int,
     m = mesh_obj.devices.size
     if tots is None:
         step = sharded_turbo_decode(mesh_obj, t4, hrows, tlog, u16=is_pair,
-                                    pair=is_pair)
+                                    pair=is_pair, interpret=interpret)
         outw, err, _any = step(*_pad_groups([cs, tbl, init, hws], m))
     else:
         step = sharded_turbo_decode_v2(mesh_obj, t4, hrows, tlog, u16=is_pair,
-                                       pair=is_pair, quad=wire == "quad")
+                                       pair=is_pair, quad=wire == "quad",
+                                       interpret=interpret)
         outw, err, _any = step(*_pad_groups([cs, tbl, init, hws, tots], m))
     return outw, err
 
 
-def turbo_decompress_device(blob: bytes, mesh: int | Mesh = 0, windows: int = 0,
+def turbo_decompress_device(blob: bytes, interpret: bool = False,
+                            mesh: int | Mesh = 0, windows: int = 0,
                             device=None) -> bytes:
     """Decompress a TurboRANS stream with the decode kernels.
 
@@ -640,7 +649,7 @@ def turbo_decompress_device(blob: bytes, mesh: int | Mesh = 0, windows: int = 0,
     splits each batch's groups over that many devices, as
     turbo_compress_device does; there, as in the JAX package, speed-wire
     batches all go through rans_decode_v2.  Raises ValueError on a corrupt
-    group.  device: as turbo_compress_device."""
+    group.  interpret, device: as turbo_compress_device."""
     dev = resolve_device(device)
     mesh_obj = _mesh_of(mesh, dev)
     with _stage("d_parse", dev):
@@ -657,7 +666,7 @@ def turbo_decompress_device(blob: bytes, mesh: int | Mesh = 0, windows: int = 0,
         if mesh_obj is not None:
             with _stage("d_kernel", dev):
                 outw, err = _mesh_decode(mesh_obj, wire, cs, tbl, init, hws,
-                                         tots, t4, hrows, tlog)
+                                         tots, t4, hrows, tlog, interpret)
         else:
             with _stage("d_h2d", dev):
                 ins = to_tensors(dev, csize_hw=cs, tables=tbl,
@@ -666,7 +675,7 @@ def turbo_decompress_device(blob: bytes, mesh: int | Mesh = 0, windows: int = 0,
                             if kind else None)
             with _stage("d_kernel", dev):
                 outw, err = _decode_batch(wire, tuple(ins.values()), steptots,
-                                          t4, hrows, tlog, windows)
+                                          t4, hrows, tlog, windows, interpret)
         with _stage("d_d2h", dev):
             err = err[:G].cpu().numpy()
             if err.any():
@@ -750,14 +759,15 @@ def stage_encode16_batch(items, n_pad: int, big: bool):
 
 
 def turbo16_compress_device(symbols: np.ndarray, group_syms: int = 1 << 19,
-                            steptots: bool = True, device=None) -> bytes:
+                            interpret: bool = False, steptots: bool = True,
+                            device=None) -> bytes:
     """Compress a u16 symbol array (symbols <= 4095) with the TurboRANS-U16
     encode kernel.
 
     Frames equal the JAX package's turbo16_compress_device and the numpy
     twin rans16_compress.  steptots=True (speed mode) ships per-step
     renorm counts for the rows-wire decode; False is ratio mode (v1
-    frames).  device: as turbo_compress_device."""
+    frames).  interpret, device: as turbo_compress_device."""
     dev = resolve_device(device)
     symbols = np.ascontiguousarray(symbols, dtype=np.uint16)
     n_groups, results, batches = plan_encode16(symbols, group_syms, steptots)
@@ -770,7 +780,7 @@ def turbo16_compress_device(symbols: np.ndarray, group_syms: int = 1 << 19,
         stream, fin, csize, stots = rans_encode(
             ins["fc_tables"], ins["magic_tables"], ins["src_words"],
             n_pad // RANS16_STEP_SYMS, _round8(n_pad // 128 + 16), True, tlog,
-            steptots)
+            steptots, interpret=interpret)
         csize = csize.cpu().numpy()
         # one halfword per entry: copy only the entries used
         stream = stream.reshape(G, -1)[:, : int(csize.max())].cpu().numpy()
@@ -849,12 +859,13 @@ def stage_decode16_batch(groups, idxs, n_pad: int, tlog: int,
     return cs, tbl, init, hws, tots, n_pad // RANS16_STEP_SYMS, hrows
 
 
-def turbo16_decompress_device(blob: bytes, windows: int = 0,
-                              device=None) -> np.ndarray:
+def turbo16_decompress_device(blob: bytes, interpret: bool = False,
+                              windows: int = 0, device=None) -> np.ndarray:
     """Decompress a TurboRANS-U16 stream with the decode kernels: speed
     frames through rans_decode_v2 or rans_decode_w (windows as in
     turbo_decompress_device), ratio frames through rans_decode.  Raises
-    ValueError on a corrupt group.  device: as turbo_compress_device."""
+    ValueError on a corrupt group.  interpret, device: as
+    turbo_compress_device."""
     dev = resolve_device(device)
     groups = parse_groups16(blob)
     pieces, batches = plan_decode16(groups)
@@ -875,12 +886,14 @@ def turbo16_decompress_device(blob: bytes, windows: int = 0,
             if w_nway:
                 outw, err = rans_decode_w(*common, steptots, t2, hrows,
                                           w_nway, tlog, w_s, u16=True,
-                                          u16x=big)
+                                          u16x=big, interpret=interpret)
             else:
                 outw, err = rans_decode_v2(*common, steptots, t2, hrows,
-                                           tlog, u16=True, u16x=big)
+                                           tlog, u16=True, u16x=big,
+                                           interpret=interpret)
         else:
-            outw, err = rans_decode(*common, t2, hrows, True, tlog, big)
+            outw, err = rans_decode(*common, t2, hrows, True, tlog, big,
+                                    interpret=interpret)
         err = err.cpu().numpy()
         if err.any():
             raise ValueError(

@@ -1,11 +1,12 @@
 """The v0 TurboFSE decode: the CUDA kernel's wrapper and its plain version.
 
 ``turbo_fse_decode`` -> csrc/turbo_fse_decode.cu (replaces the JAX
-package's turbo/kernels.py:_decode_kernel): one 1024-thread block per
-group advances its 1024 tANS chains one step at a time, the lane's bit
-field placed by a prefix of nbBits over the lanes.  On CPU tensors it runs
-the plain PyTorch version; on CUDA tensors it launches the kernel, or
-raises, and adds one to ``rans_kernels.launches["turbo_fse_decode:v0"]``.
+package's turbo/kernels.py:_decode_kernel): one 8-warp block per group
+advances its 1024 tANS chains (four a thread) one step at a time, the
+lane's bit field placed by a prefix of nbBits over the lanes.  On CPU
+tensors, or with interpret=True, it runs the plain PyTorch version;
+otherwise, on CUDA tensors, it launches the kernel, or raises, and adds
+one to ``rans_kernels.launches["turbo_fse_decode:v0"]``.
 
 The v0 wire (turbo/format.py) is bit-granular, the ratio ceiling of the
 lane-interleaved formats; the JAX package reaches this kernel only as its
@@ -121,6 +122,8 @@ def _decode_v0_kernel(csize_bits, tables, init_states, streams,
     err = torch.empty((G,), dtype=torch.int32, device=dev)
     cs, tbl, ini, strm = (a.contiguous() for a in
                           (csize_bits, tables, init_states, streams))
+    if strm.data_ptr() % 16:        # the kernel stages the stream in 16-byte copies
+        strm = strm.clone()
     _launch("turbo_fse_decode_launch", dev, cs.data_ptr(), tbl.data_ptr(),
             ini.data_ptr(), strm.data_ptr(), strm[0].numel(), out.data_ptr(),
             err.data_ptr(), G, t4_count)
@@ -128,15 +131,16 @@ def _decode_v0_kernel(csize_bits, tables, init_states, streams,
 
 
 def turbo_fse_decode(csize_bits, tables, init_states, streams,
-                     t4_count: int, wrows: int):
+                     t4_count: int, wrows: int, interpret: bool = False):
     """Batched v0 decode.
 
     csize_bits[G] i32; tables[G,16,128] i32 packed (base<<16 | nb<<8 |
     sym, pack_dtable); init_states[G,8,128] i32; streams[G,wrows,128] i32
     payload words (wrows_for).  Returns (out[G, t4_count*8, 128] i32 =
-    decoded bytes, 4 per word, err[G] i32 = the final cursor, 0 = ok)."""
+    decoded bytes, 4 per word, err[G] i32 = the final cursor, 0 = ok).
+    interpret=True runs the plain version on the inputs' device."""
     _check_v0(csize_bits, tables, init_states, streams, t4_count, wrows)
-    if not _on_cuda(csize_bits, tables, init_states, streams):
+    if not _on_cuda(csize_bits, tables, init_states, streams) or interpret:
         return turbo_fse_decode_plain(csize_bits, tables, init_states,
                                       streams, t4_count, wrows)
     out = _decode_v0_kernel(csize_bits, tables, init_states, streams, t4_count)

@@ -1,8 +1,10 @@
 """TurboRANS kernel wrappers: the CUDA kernels and their plain PyTorch versions.
 
-The entries keep the JAX package's names, argument order (less the
-TPU-only ``interpret``), output shapes and dtypes (i32 holding u32 bit
-patterns):
+The entries keep the JAX package's names, output shapes and dtypes (i32
+holding u32 bit patterns) and argument order, less ``interpret``, which
+each entry takes as its last parameter instead: interpret=True runs the
+plain PyTorch version on the inputs' device (the counterpart of a Pallas
+kernel's body in the interpreter) and counts no launch:
 
 * ``rans_encode2`` -> csrc/rans_encode.cu (replaces _rans_encode_rl_kernel,
   rowloc=True, and _rans_encode2_kernel, rowloc=False: the same wire, two
@@ -21,7 +23,8 @@ patterns):
   shipped step totals) and ``rans_decode`` (v1 frames, no section) ->
   csrc/rans_decode_flat.cu (replaces _rans_decode_v2t_kernel, the totals
   mode of _rans_decode_w_kernel and _rans_decode_kernel): the rank is a
-  prefix over all 1024 lanes, so one block decodes a whole group.
+  prefix over all 1024 lanes, so one block (a warp per row) decodes a
+  whole group.
 
 Wire modes, named by the JAX wrappers' flags:
 
@@ -42,8 +45,9 @@ The totals wire is byte-only, as the JAX package writes it.  The encodes
 take the mode from the table width as the JAX kernels do: 2 chunks (256
 entries) byte, pair (``u16=True``) or quad; 8 chunks u16; 32 chunks u16x.
 
-On CPU tensors a wrapper runs the plain PyTorch version beside it; on CUDA
-tensors it launches the kernel, or raises.  ``launches`` counts kernel
+On CPU tensors, or when asked by interpret=True, a wrapper runs the plain
+PyTorch version beside it; otherwise, on CUDA tensors, it launches the
+kernel, or raises.  ``launches`` counts kernel
 launches per entry and mode ("rans_encode2:quad", "rans_encode2_flat:byte"
 for the flat placement, "rans_decode_w:totals"; turbo/kernels.py adds
 "turbo_fse_decode:v0"); nothing else adds to it.  LAUNCH_MODES lists the
@@ -325,7 +329,7 @@ def rans_encode2(fc_tables, magic_tables, src_words, t4_count: int,
                  hrows_cap: int, tlog: int = RANS_TABLELOG,
                  u16: bool = False, quad: bool = False,
                  steptots: bool = True, force_chunk: int = 0,
-                 rowloc: bool = False):
+                 rowloc: bool = False, interpret: bool = False):
     """Packed-out encode of G groups: the speed and ratio wires, byte, pair
     (u16=True on 2-chunk tables), quad, u16 and u16x.
 
@@ -344,7 +348,7 @@ def rans_encode2(fc_tables, magic_tables, src_words, t4_count: int,
     holds."""
     mode = _encode_mode(fc_tables, magic_tables, src_words, t4_count, u16, quad)
     _enc_chunking(t4_count, SPC[mode], force_chunk)  # frame-shaping rule
-    if not _on_cuda(fc_tables, magic_tables, src_words):
+    if not _on_cuda(fc_tables, magic_tables, src_words) or interpret:
         return rans_encode2_plain(fc_tables, magic_tables, src_words, t4_count,
                                   hrows_cap, tlog, u16, quad, steptots)
     out = _encode_kernel(fc_tables, magic_tables, src_words, t4_count,
@@ -368,7 +372,8 @@ def rans_encode_plain(fc_tables, magic_tables, src_words, t4_count: int,
 
 def rans_encode(fc_tables, magic_tables, src_words, t4_count: int,
                 hrows_cap: int, u16: bool = False,
-                tlog: int = RANS_TABLELOG, steptots: bool = True):
+                tlog: int = RANS_TABLELOG, steptots: bool = True,
+                interpret: bool = False):
     """The v1 encode (the JAX rans_encode entry) of G groups: byte symbols
     on 2-chunk tables (u16=False), u16 symbols <= 1023 on 8-chunk tables
     and <= 4095 on 32-chunk ones (u16=True).
@@ -382,7 +387,7 @@ def rans_encode(fc_tables, magic_tables, src_words, t4_count: int,
     callers in the JAX package are its encode parity test and fullbench
     stage 205 (the multi-device compress runs rans_encode2)."""
     mode = _encode_mode(fc_tables, magic_tables, src_words, t4_count, u16)
-    if not _on_cuda(fc_tables, magic_tables, src_words):
+    if not _on_cuda(fc_tables, magic_tables, src_words) or interpret:
         return rans_encode_plain(fc_tables, magic_tables, src_words, t4_count,
                                  hrows_cap, u16, tlog, steptots)
     out = _encode_kernel(fc_tables, magic_tables, src_words, t4_count,
@@ -508,6 +513,8 @@ def _decode_flat_kernel(tables, init_states, streams, csize_hw, cursors,
     cend = torch.empty((G,), dtype=torch.int32, device=dev)
     tbl, ini, strm, cs = (a.contiguous() for a in
                           (tables, init_states, streams, csize_hw))
+    if strm.data_ptr() % 16:        # the kernel stages the stream in 16-byte copies
+        strm = strm.clone()
     cur = None if cursors is None else cursors.contiguous()
     _launch("rans_decode_flat_launch", dev, tbl.data_ptr(), tbl[0].numel(),
             ini.data_ptr(), strm.data_ptr(), strm[0].numel() * 2,
@@ -555,11 +562,11 @@ def rans_decode_plain(csize_hw, tables, init_states, streams, steptots,
 
 
 def _decode(entry: str, csize_hw, tables, init_states, streams, steptots,
-            t4_count: int, hrows: int, tlog: int, mode: str):
+            t4_count: int, hrows: int, tlog: int, mode: str, interpret: bool):
     _check_decode(csize_hw, tables, init_states, streams, steptots,
                   t4_count, hrows, tlog, mode)
     cursors, roff, bad = _decode_prep(csize_hw, steptots)
-    if not _on_cuda(csize_hw, tables, init_states, streams, steptots):
+    if not _on_cuda(csize_hw, tables, init_states, streams, steptots) or interpret:
         out, res, _ = _decode_plain(tables, init_states, streams, t4_count,
                                     tlog, mode, cursors, roff)
         return out, _err(res, bad)
@@ -578,7 +585,7 @@ def _decode(entry: str, csize_hw, tables, init_states, streams, steptots,
 def rans_decode_v2(csize_hw, tables, init_states, streams, steptots,
                    t4_count: int, hrows: int, tlog: int = RANS_TABLELOG,
                    u16: bool = False, u16x: bool = False, pair: bool = False,
-                   quad: bool = False):
+                   quad: bool = False, interpret: bool = False):
     """Speed-wire decode of G groups (the JAX resident-decoder entry).
 
     csize_hw[G] i32; tables[G, tch, 128] i32 (tables.pack_*_dtable; see
@@ -592,13 +599,14 @@ def rans_decode_v2(csize_hw, tables, init_states, streams, steptots,
     csize_hw."""
     return _decode("rans_decode_v2", csize_hw, tables, init_states, streams,
                    steptots, t4_count, hrows, tlog,
-                   _mode(u16, pair, quad, u16x))
+                   _mode(u16, pair, quad, u16x), interpret)
 
 
 def rans_decode_w(csize_hw, tables, init_states, streams, steptots,
                   t4_count: int, hrows: int, nway: int,
                   tlog: int = RANS_TABLELOG, S: int = 32, u16: bool = False,
-                  u16x: bool = False, pair: bool = False, quad: bool = False):
+                  u16x: bool = False, pair: bool = False, quad: bool = False,
+                  interpret: bool = False):
     """The JAX windowed-decoder entry: same inputs and outputs as
     rans_decode_v2, plus its shape rule (t4_count a multiple of the window
     span S, S a multiple of 128//spc supercycles).  nway and S tune the
@@ -606,7 +614,7 @@ def rans_decode_w(csize_hw, tables, init_states, streams, steptots,
     mode = _mode(u16, pair, quad, u16x)
     assert t4_count % S == 0 and S % (128 // SPC[mode]) == 0, (t4_count, S)
     return _decode("rans_decode_w", csize_hw, tables, init_states, streams,
-                   steptots, t4_count, hrows, tlog, mode)
+                   steptots, t4_count, hrows, tlog, mode, interpret)
 
 
 def rans_decode_v1_plain(csize_hw, tables, init_states, streams,
@@ -624,7 +632,8 @@ def rans_decode_v1_plain(csize_hw, tables, init_states, streams,
 
 def rans_decode(csize_hw, tables, init_states, streams, t4_count: int,
                 hrows: int, u16: bool = False, tlog: int = RANS_TABLELOG,
-                u16x: bool = False, pair: bool = False):
+                u16x: bool = False, pair: bool = False,
+                interpret: bool = False):
     """v1 decode of G groups (frames with no section: ratio mode, v1 pair,
     the U16 codec's ratio frames).  The rank and the cursor chain are both
     computed in the kernel: the cursor starts at csize_hw and drops by each
@@ -637,7 +646,7 @@ def rans_decode(csize_hw, tables, init_states, streams, t4_count: int,
     mode = _mode(u16, pair, False, u16x)
     _check_decode(csize_hw, tables, init_states, streams, None, t4_count,
                   hrows, tlog, mode)
-    if not _on_cuda(csize_hw, tables, init_states, streams):
+    if not _on_cuda(csize_hw, tables, init_states, streams) or interpret:
         out, res, cend = _decode_plain(tables, init_states, streams, t4_count,
                                        tlog, mode, csize_hw=csize_hw)
     else:
