@@ -18,7 +18,7 @@ Phases, one result line each:
      rows and totals wires, rans_decode on v1 frames, turbo_fse_decode on
      v0 frames) with group 1 corrupted (its err must be set, the others'
      not);
-  4. sixteen paths, each with the launch counts set to 0 just before it
+  4. twenty paths, each with the launch counts set to 0 just before it
      and read just after; twelve through the entry points
      (turbo_compress_device / turbo_decompress_device,
      turbo16_compress_device / turbo16_decompress_device):
@@ -61,7 +61,7 @@ Phases, one result line each:
                           sharded_turbo_decode steps, one flat byte encode
                           and one decode per mode and shard; the frames must
                           equal the single-device ones;
-     and four more:
+     four more:
        mesh_u16_pareto    sharded_turbo16_roundtrip over the mesh on the u16
                           path's 64 groups: the flat u16 encode and v2:u16;
        dryrun_multichip   parallel/dryrun.py over the mesh's devices: every
@@ -70,12 +70,36 @@ Phases, one result line each:
        v0_p80_16MiB       the v0 TurboFSE codec: 16 x 1 MiB of Proba80
                           compressed by the numpy twin on the host, then one
                           turbo_fse_decode launch, which must give the input
-                          back, as must turbo_fse_decompress.
+                          back, as must turbo_fse_decompress;
+     and the device-resident pipeline (turbo/device_api.py) and the CLI:
+       resident_p80_64MiB rans_compress_resident on 64 MiB of Proba80 in GPU
+                          memory (hist, normalization and tables on the GPU,
+                          one byte encode), then rans_decompress_resident
+                          (one rans_decode_v2); the same on 8 MiB with
+                          totals_only=True (rans_decode_v2:totals) and
+                          steptots=False (rans_decode:byte); the output,
+                          on the GPU, equals the input, and the frames equal
+                          the byte-wire paths' and the twin's;
+       resident_roundtrip_p80_64MiB
+                          rans_resident_roundtrip on the same 64 MiB: one
+                          encode and one rans_decode_w, all in GPU memory;
+       resident_mixed_16MiB
+                          16 x 1 MiB of coded, random and RLE groups (the
+                          JAX package's mixed corpus): the fused compress
+                          classifies them, the coded ones decode through
+                          rans_decode_w, the rest are rebuilt on the GPU;
+       cli_p80_8MiB       python -m finitestateentropy_tpu_torch.cli -T on a
+                          file of 8 MiB of Proba80 in a child process, then
+                          -T -d: the file comes back and the .tfse equals
+                          turbo_compress_device's (one quad encode and one
+                          quad rans_decode_w, counted in the child).
      Every round trip gives back its input and every frame equals the
      port's numpy twin of the wire and mode its group was coded in
      (quad_compress, pair_compress, rans_compress, rans16_compress);
   5. every batch of each path, planned and staged as the entry points do
-     it (the dry run's on its own inputs and shapes), through the wrappers
+     it (the dry run's on its own inputs and shapes; the resident paths'
+     device ops also against their CPU runs, the host prep and the host
+     table packers, and their encodes on the coded rows), through the wrappers
      on the GPU against the plain versions (err included); the batches per
      entry and mode (times the shards of the mesh each runs on) equal the
      path's launches, and every entry and mode is launched by
@@ -83,7 +107,10 @@ Phases, one result line each:
      (rans_encode:byte, rans_encode2_flat:u16x): those are checked at the
      shapes of the byte and u16x paths;
   6. end-to-end GB/s of the default-flag path (and of the byte wire), the
-     entry points' own stage seconds on the default-flag path, per-step
+     entry points' own stage seconds on the default-flag path, the resident
+     pipeline's rates (fused compress, round trip, mixed round trip and the
+     resident entries whole; CUDA events, median of 3) with a
+     torch.profiler split of rans_compress_resident by stage, per-step
      chain latencies (csrc/chain_probe.cu) and per-kernel-and-mode times
      at the shapes of the first path that launches each: the wrapper's
      launch call (CUDA events, mean of 20 calls, allocations included) and
@@ -101,8 +128,10 @@ import ctypes
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -147,6 +176,26 @@ V0_OPS_PER_STEP = 20
 FLAT_LANE_OPS = 1
 FLAT_SCAN_ADDS = 31
 V0_MIB = 16                    # the v0 path: its only encoder is the numpy twin
+RES_SMALL_MIB = 8              # the resident path's totals and ratio pieces
+RES_TLOG = 10                  # the resident speed mode's tableLog
+MIXED_GROUPS = 16              # the resident mixed path: 16 x 1 MiB
+CLI_MIB = 8                    # the CLI path
+REPO = Path(__file__).resolve().parent
+# the CLI run as `python -m` runs it (runpy), in a child that then reports
+# its launch counts on its last line of stderr
+CLI_CHILD = """
+import json, runpy, sys
+from finitestateentropy_tpu_torch.turbo import rans_kernels as rk
+sys.argv = ["finitestateentropy_tpu_torch.cli"] + sys.argv[1:]
+try:
+    runpy.run_module("finitestateentropy_tpu_torch.cli", run_name="__main__",
+                     alter_sys=True)
+    code = 0
+except SystemExit as e:
+    code = e.code
+print(json.dumps({k: v for k, v in rk.launches.items() if v}), file=sys.stderr)
+sys.exit(code)
+"""
 FLAT_THREADS = 512             # a group's block in csrc/rans_decode_flat.cu
 V0_THREADS = 256               # and in csrc/turbo_fse_decode.cu
 KERNEL_LINE = {  # entry -> TPU kernel, file:line in finitestateentropy_tpu/turbo/
@@ -270,6 +319,42 @@ def u16_corpus(n: int, wide: bool, seed: int = 0) -> np.ndarray:
                    top).astype(np.uint16)
 
 
+def mixed_corpus(section: int, n: int) -> bytes:
+    """The JAX package's mixed corpus (bench.py:596-609): group i of
+    `section` bytes is Proba80, Proba14, random or one repeated byte by
+    i % 4."""
+    from finitestateentropy_tpu_torch.utils import generate_proba
+
+    rng = np.random.default_rng(1)
+    base80, base14 = generate_proba(80), generate_proba(14)
+    parts = []
+    for i in range(n):
+        k = i % 4
+        if k in (0, 1):
+            base = base80[(i * 7919) % 4096:] if k == 0 else base14[(i * 104729) % 4096:]
+            parts.append((base * ((section // len(base)) + 2))[:section])
+        elif k == 2:
+            parts.append(bytes(rng.integers(0, 256, section, dtype=np.uint8)))
+        else:
+            parts.append(bytes([i & 0xFF]) * section)
+    return b"".join(parts)
+
+
+def build_dir() -> Path:
+    d = REPO / "build"
+    d.mkdir(exist_ok=True)
+    return d
+
+
+def run_cli(argv: list[str]) -> dict:
+    """python -m finitestateentropy_tpu_torch.cli argv in a child process;
+    returns the child's launch counts.  Fails on a nonzero exit."""
+    r = subprocess.run([sys.executable, "-c", CLI_CHILD, *argv], cwd=REPO,
+                       capture_output=True, text=True, timeout=600)
+    require(r.returncode == 0, f"cli {argv}: exit {r.returncode}: {r.stderr[-2000:]}")
+    return json.loads(r.stderr.strip().splitlines()[-1])
+
+
 def chain_step_ns() -> dict:
     """ns per dependent step of each kind csrc/chain_probe.cu measures, on
     one block: shared-memory load, global load hitting L1, global load
@@ -353,7 +438,11 @@ def main() -> int:
     from finitestateentropy_tpu_torch.parallel import dryrun as dr
     from finitestateentropy_tpu_torch.parallel.mesh import make_mesh
     from finitestateentropy_tpu_torch.parallel.turbo_dp import sharded_turbo16_roundtrip
+    from finitestateentropy_tpu_torch.ops.hist import hist_count_masked
+    from finitestateentropy_tpu_torch.ops.norm import fse_normalize_batch
+    from finitestateentropy_tpu_torch.ops.rans_tables import pack_rans_dtable_batch
     from finitestateentropy_tpu_torch.turbo import api
+    from finitestateentropy_tpu_torch.turbo import device_api as da
     from finitestateentropy_tpu_torch.turbo import kernels as v0
     from finitestateentropy_tpu_torch.turbo import rans_kernels as rk
     from finitestateentropy_tpu_torch.turbo._build import build_all
@@ -362,10 +451,12 @@ def main() -> int:
                                                            turbo_fse_decompress)
     from finitestateentropy_tpu_torch.turbo.pair import pair_compress
     from finitestateentropy_tpu_torch.turbo.quad import quad_compress
-    from finitestateentropy_tpu_torch.turbo.rans import rans_compress
+    from finitestateentropy_tpu_torch.turbo.rans import RANS_TABLELOG, rans_compress
     from finitestateentropy_tpu_torch.turbo.rans16 import rans16_compress
     from finitestateentropy_tpu_torch.turbo.state import to_tensors
-    from finitestateentropy_tpu_torch.turbo.tables import pack_rans16_dtable
+    from finitestateentropy_tpu_torch.turbo.tables import (pack_rans16_dtable,
+                                                           pack_rans_ctables,
+                                                           pack_rans_dtable)
     from finitestateentropy_tpu_torch.utils import generate_proba
 
     def compress(p: Piece) -> bytes:
@@ -776,6 +867,197 @@ def main() -> int:
                 for i, b in enumerate(v0_blobs)), "v0 path: twin decode differs")
     e2e_s["v0_p80_16MiB/0"] = v0_secs
     path_batches["v0_p80_16MiB"] = lambda: [v0_batch(v0_blobs)]
+
+    # the device-resident paths (turbo/device_api.py): the payload stays on
+    # the GPU; the histogram, normalization and tables run there too
+    x64 = torch.from_numpy(np.frombuffer(main_data, np.uint8).copy()).to(DEV)
+    res_modes = {"rows": (x64, {}),
+                 "totals": (x64[:RES_SMALL_MIB * GROUP], dict(totals_only=True)),
+                 "ratio": (x64[:RES_SMALL_MIB * GROUP], dict(steptots=False))}
+    res_blobs = {}
+    rk.reset_launches()
+    torch.cuda.synchronize()
+    for mode, (x, kw) in res_modes.items():
+        t0 = time.perf_counter()
+        blob = da.rans_compress_resident(x, GROUP, **kw)
+        secs = [time.perf_counter() - t0]
+        t0 = time.perf_counter()
+        back = da.rans_decompress_resident(blob, device=DEV)
+        require(back.device == x.device and torch.equal(back, x),
+                f"resident_p80_64MiB: the {mode} round trip")
+        torch.cuda.synchronize()
+        e2e_s[f"resident_p80_64MiB/{mode}"] = secs + [time.perf_counter() - t0]
+        res_blobs[mode] = blob
+    launches["resident_p80_64MiB"] = {k: v for k, v in rk.launches.items() if v}
+
+    rk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok, rt_cs, rt_n = da.rans_resident_roundtrip(x64, GROUP)
+    e2e_s["resident_roundtrip_p80_64MiB/0"] = [time.perf_counter() - t0]
+    launches["resident_roundtrip_p80_64MiB"] = {k: v for k, v in rk.launches.items() if v}
+    frames_cs = sum(g[1] for g in api.parse_groups(res_blobs["rows"]))
+    require(ok and rt_n == len(main_data) and rt_cs == frames_cs,
+            f"resident round trip: ok {ok}, {rt_cs} halfwords, frames {frames_cs}")
+
+    # mixed groups (bench.py:596-609): coded, raw and RLE rows share the
+    # encode launch; one sync of the flags gives the coded set
+    xm = torch.from_numpy(np.frombuffer(mixed_corpus(GROUP, MIXED_GROUPS),
+                                        np.uint8).copy()).to(DEV)
+    lens_m = torch.full((MIXED_GROUPS,), GROUP, dtype=torch.int32, device=DEV)
+    warm_m = da._resident_compress(xm.view(MIXED_GROUPS, GROUP), lens_m, GROUP,
+                                   RES_TLOG, True)
+    flags_m = warm_m[6].cpu().numpy()
+    coded_m = tuple(int(i) for i in np.flatnonzero(flags_m == 0))
+    require(flags_m.tolist() == [0, 0, 4, 1] * (MIXED_GROUPS // 4),
+            f"resident mixed flags {flags_m.tolist()}")
+    torch.cuda.synchronize()            # a fault in the shared launch shows here
+    cap_hw = api._hrows_cap(GROUP) * 128
+    csize_m = warm_m[2].cpu().numpy()
+    require(int(csize_m.max()) <= cap_hw,
+            f"resident mixed: csize {csize_m.tolist()} past the capacity {cap_hw}")
+    rk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok, mixed_cs = da._resident_mixed_rt(xm, GROUP, RES_TLOG, coded_m)
+    ok, mixed_cs = bool(ok), int(mixed_cs)
+    e2e_s["resident_mixed_16MiB/0"] = [time.perf_counter() - t0]
+    launches["resident_mixed_16MiB"] = {k: v for k, v in rk.launches.items() if v}
+    mixed_frames = api.parse_groups(da.rans_compress_resident(xm, GROUP))
+    require(ok and mixed_cs == sum(int(csize_m[i]) for i in coded_m)
+            == sum(mixed_frames[i][1] for i in coded_m),
+            f"resident mixed round trip: ok {ok}, {mixed_cs} halfwords")
+
+    # the CLI in a subprocess: -T compresses a file, -T -d gives it back
+    cli_data = corpus[:CLI_MIB * GROUP]
+    cli_launches = {}
+    with tempfile.TemporaryDirectory(dir=build_dir()) as tmp:
+        src, tfse, back = (Path(tmp) / n for n in ("p80", "p80.tfse", "back"))
+        src.write_bytes(cli_data)
+        t0 = time.perf_counter()
+        secs = []
+        for argv in (["-T", "-f", str(src), str(tfse)],
+                     ["-T", "-d", "-f", str(tfse), str(back)]):
+            for k, v in run_cli(argv).items():
+                cli_launches[k] = cli_launches.get(k, 0) + v
+            secs.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+        cli_blob = tfse.read_bytes()
+        require(back.read_bytes() == cli_data, "cli_p80_8MiB: the round trip")
+    e2e_s["cli_p80_8MiB/0"] = secs
+    launches["cli_p80_8MiB"] = cli_launches
+    require(cli_blob == api.turbo_compress_device(cli_data, device=DEV),
+            "cli_p80_8MiB: .tfse differs from turbo_compress_device")
+
+    def resident_encode_batch(name: str, x, mode_kw: dict, coded=None) -> dict:
+        """The resident compress's encode of x's one batch (1 MiB groups),
+        its device ops held against their CPU runs, the host prep
+        (_prep_group) and the host packers; the launch against its plain
+        version on the coded rows (coded None: all)."""
+        n = int(x.shape[0])
+        _count, batches = da._resident_batches(n, GROUP)
+        ((n_pad, items),) = batches.items()
+        st = mode_kw.get("steptots", True)
+        tlog = RES_TLOG if st else RANS_TABLELOG
+        xp, lens = da._resident_slices(x, items, n_pad)
+        gpu_ops = da._resident_prep(xp, lens, n_pad, tlog)
+        cpu_ops = da._resident_prep(xp.cpu(), lens.cpu(), n_pad, tlog)
+        names = ("counts", "norm", "flags", "mfs", "norm_s", "fc", "magic", "srcw")
+        for nm, g, c in zip(names, gpu_ops, cpu_ops):
+            require(torch.equal(g.cpu(), c), f"{name}: device op {nm} differs from its CPU run")
+        counts, norm, flags, mfs, norm_s, fc, mg, srcw = (t.cpu().numpy() for t in gpu_ops)
+        host = x.cpu().numpy()
+        for j, (_gi, st0, ln) in enumerate(items):
+            prep = api._prep_group(host[st0:st0 + ln], tlog)
+            if prep is None:
+                require(flags[j] in (1, 4), f"{name}: group {j} flags {flags[j]}")
+                continue
+            h_norm, max_sv, _nc, h_mfs = prep
+            h_fc, h_mg = pack_rans_ctables(h_norm)
+            require(flags[j] == 0 and mfs[j] == h_mfs
+                    and np.array_equal(norm[j, :max_sv + 1], h_norm)
+                    and not norm[j, max_sv + 1:].any()
+                    and np.array_equal(fc[j].reshape(-1)[:max_sv + 1],
+                                       h_fc.reshape(-1)[:max_sv + 1])
+                    and np.array_equal(mg[j].reshape(-1)[:max_sv + 1],
+                                       h_mg.reshape(-1)[:max_sv + 1]),
+                    f"{name}: group {j} differs from the host prep")
+        device_ops_checked[name] = device_ops_checked.get(name, 0) + len(items)
+        rows = (torch.arange(len(items), device=DEV) if coded is None
+                else torch.tensor(coded, device=DEV))
+        args = (gpu_ops[5], gpu_ops[6], gpu_ops[7], n_pad // 4096,
+                api._hrows_cap(n_pad), tlog)
+
+        def on_rows(out):
+            return tuple(None if o is None else o[rows] for o in out)
+        return dict(key="rans_encode2:byte", shards=1,
+                    run=lambda: on_rows(rk.rans_encode2(*args, steptots=st, rowloc=True)),
+                    plain=lambda: on_rows(rk.rans_encode2_plain(*args, steptots=st)),
+                    outputs=lambda: rk.rans_encode2(*args, steptots=st, rowloc=True),
+                    norm_s=gpu_ops[4], tlog=tlog, t4=n_pad // 4096,
+                    hcap=api._hrows_cap(n_pad))
+
+    def resident_decode_batches(blob: bytes) -> list[dict]:
+        """rans_decompress_resident's decode batches of blob: rows and
+        totals frames through rans_decode_v2, v1 frames through
+        rans_decode."""
+        groups = api.parse_groups(blob)
+        out = []
+        for (wire, n_pad, tlog, kind), idxs in api.plan_decode(groups)[1].items():
+            cs, tbl, init, hws, tots, t4, hrows = api.stage_decode_batch(
+                groups, idxs, n_pad, tlog, wire, kind)
+            ins = tuple(to_tensors(DEV, csize_hw=cs, tables=tbl, init_states=init,
+                                   streams=hws).values())
+            if kind:
+                stt = to_tensors(DEV, steptots=tots)["steptots"]
+                out.append(dict(
+                    key="rans_decode_v2:" + ("totals" if kind == 1 else wire), shards=1,
+                    run=partial(rk.rans_decode_v2, *ins, stt, t4, hrows, tlog),
+                    plain=partial(rk.rans_decode_plain, *ins, stt, t4, hrows, tlog)))
+            else:
+                out.append(dict(
+                    key=f"rans_decode:{wire}", shards=1,
+                    run=partial(rk.rans_decode, *ins, t4, hrows, tlog=tlog),
+                    plain=partial(rk.rans_decode_v1_plain, *ins, t4, hrows, tlog=tlog)))
+        return out
+
+    def resident_w_batch(name: str, enc: dict, coded=None) -> dict:
+        """The round trips' windowed decode of enc's encode output on the
+        coded rows, with decode tables built on the device (held against
+        their CPU build and the host packer)."""
+        stream, fin, csize, stots = enc["outputs"]()
+        rows = slice(None) if coded is None else torch.tensor(coded, device=DEV)
+        norm_s = enc["norm_s"][rows]
+        dtbl = pack_rans_dtable_batch(norm_s, enc["tlog"])
+        require(torch.equal(dtbl.cpu(), pack_rans_dtable_batch(norm_s.cpu(), enc["tlog"])),
+                f"{name}: device dtable differs from its CPU run")
+        for j, row in enumerate(norm_s.cpu().numpy()):
+            max_sv = int(np.flatnonzero(row).max())
+            require(np.array_equal(dtbl[j].cpu().numpy(),
+                                   pack_rans_dtable(row[:max_sv + 1], enc["tlog"])),
+                    f"{name}: device dtable {j} differs from the host packer")
+        args = (csize[rows], dtbl, fin[rows], stream[rows], stots[rows], enc["t4"],
+                enc["hcap"])
+        return dict(key="rans_decode_w:byte", shards=1,
+                    run=partial(rk.rans_decode_w, *args, 8, enc["tlog"], 32),
+                    plain=partial(rk.rans_decode_plain, *args, enc["tlog"]))
+
+    device_ops_checked = {}
+    path_batches["resident_p80_64MiB"] = lambda: [
+        b for mode, (x, kw) in res_modes.items()
+        for b in [resident_encode_batch("resident_p80_64MiB", x, kw)]
+        + resident_decode_batches(res_blobs[mode])]
+
+    def roundtrip_batches(name, x, coded=None):
+        enc = resident_encode_batch(name, x, {}, coded)
+        return [enc, resident_w_batch(name, enc, coded)]
+    path_batches["resident_roundtrip_p80_64MiB"] = lambda: roundtrip_batches(
+        "resident_roundtrip_p80_64MiB", x64)
+    path_batches["resident_mixed_16MiB"] = lambda: roundtrip_batches(
+        "resident_mixed_16MiB", xm, coded_m)
+    cli_piece = Piece("turbo", cli_data, GROUP)
+    path_batches["cli_p80_8MiB"] = lambda: (encode_batches(cli_piece)
+                                            + decode_batches(cli_piece, cli_blob, 0))
     print(json.dumps({"phase": "main_path", "launches": launches,
                       "seconds_compress_then_decompress": e2e_s}), flush=True)
     expect = {
@@ -796,7 +1078,16 @@ def main() -> int:
                            "rans_decode_v2:byte": m, "rans_decode:byte": m},
         "mesh_u16_pareto": {"rans_encode2_flat:u16": m, "rans_decode_v2:u16": m},
         "dryrun_multichip": dryrun_launches(m),
-        "v0_p80_16MiB": {"turbo_fse_decode:v0": 1}}
+        "v0_p80_16MiB": {"turbo_fse_decode:v0": 1},
+        # one encode per mode; the resident decode takes v2 for rows and
+        # totals frames, rans_decode for v1 frames
+        "resident_p80_64MiB": {"rans_encode2:byte": 3, "rans_decode_v2:byte": 1,
+                               "rans_decode_v2:totals": 1, "rans_decode:byte": 1},
+        "resident_roundtrip_p80_64MiB": {"rans_encode2:byte": 1,
+                                         "rans_decode_w:byte": 1},
+        "resident_mixed_16MiB": {"rans_encode2:byte": 1, "rans_decode_w:byte": 1},
+        # default flags: 8 x 1 MiB of Proba80 go quad, as on the main path
+        "cli_p80_8MiB": {"rans_encode2:quad": 1, "rans_decode_w:quad": 1}}
     for name, want in expect.items():
         require(launches[name] == want, f"{name} routes: {launches[name]}")
     for name, need in (("default_mixed", ("pair", "quad", "byte")),
@@ -830,7 +1121,7 @@ def main() -> int:
         return {gi: wire for (wire, _p, _t), items in batches.items()
                 for gi, _ch, _prep in items}
 
-    n_frames, wires_seen = 0, {}
+    n_frames, wires_seen, twin_frames = 0, {}, {}
     for name, pieces in paths.items():
         for k, p in enumerate(pieces):
             frames = frames_of(p, blobs[(name, k)])
@@ -849,6 +1140,7 @@ def main() -> int:
                     if want is None:
                         want = rans_compress(ch, steptots=st, totals_only=tot)
                 require(f == want, f"{name}: frame {i} differs from the {wire} twin")
+                twin_frames.setdefault((name, k), []).append(want)
                 wires_seen.setdefault(name, set()).add(wire)
             n_frames += len(frames)
     require(wires_seen["default_p80_64MiB"] == {"quad"}, "main path not all quad")
@@ -863,6 +1155,20 @@ def main() -> int:
     print(json.dumps({"phase": "frames_vs_twin", "frames": n_frames,
                       "wires": {p: sorted(w) for p, w in wires_seen.items()},
                       "ratio": ratio}), flush=True)
+    # the resident frames equal the host path's on the byte wire
+    # (turbo_compress_device(d, pair=0, quad=0): the byte path; the totals and
+    # ratio paths' first groups) and the numpy twin's of that mode
+    host_of = {"rows": ("byte_p80_64MiB", MAIN_MIB),
+               "totals": ("totals_p80_64MiB", RES_SMALL_MIB),
+               "ratio": ("ratio_p80_64MiB", RES_SMALL_MIB)}
+    for mode, (path, k) in host_of.items():
+        host = b"".join(frames_of(paths[path][0], blobs[(path, 0)])[:k])
+        require(res_blobs[mode] == host == b"".join(twin_frames[(path, 0)][:k]),
+                f"resident_p80_64MiB: the {mode} frames differ from {path}'s and the twin's")
+    print(json.dumps({"phase": "resident_frames_vs_host_and_twin",
+                      "groups": {m: k for m, (_p, k) in host_of.items()},
+                      "ratio": {m: res_modes[m][0].numel() / len(b)
+                                for m, b in res_blobs.items()}}), flush=True)
 
     # 5. every batch of every path: the wrappers against the plain versions
     def batches_of(name: str) -> list[dict]:
@@ -911,8 +1217,14 @@ def main() -> int:
     require(max(errs.values()) == 0, f"a kernel differs from its plain version: {errs}")
     require(set(shapes) == set(rk.launches), f"kernels never launched: "
             f"{sorted(set(rk.launches) - set(shapes))}")
+    require(set(device_ops_checked) == {"resident_p80_64MiB", "resident_mixed_16MiB",
+                                        "resident_roundtrip_p80_64MiB"},
+            f"device ops checked on {sorted(device_ops_checked)}")
     print(json.dumps({"phase": "path_kernels_vs_plain", "max_abs_err": path_errs,
-                      "timed_on": {k: p for k, (p, _b) in shapes.items()}}),
+                      "timed_on": {k: p for k, (p, _b) in shapes.items()},
+                      # groups whose hist, norm, flags, mfs, tables and
+                      # source words equal their CPU runs and the host prep
+                      "device_ops_equal_cpu_and_host_prep": device_ops_checked}),
           flush=True)
 
     # 6. timings: end to end on the default flags (and the byte wire)
@@ -948,6 +1260,88 @@ def main() -> int:
         st[f"{side}_total"] = total
     print(json.dumps({"phase": "host_breakdown", "gpu": gpu,
                       "path": "default_p80_64MiB", "seconds": st}), flush=True)
+
+    # the resident pipeline's rates: CUDA events around the whole call,
+    # median of 3 after a warm-up; and where a compress call's time goes
+    def event_ms(fn) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    def median3(fn) -> tuple[float, list[float]]:
+        fn()
+        ms = [event_ms(fn) for _ in range(3)]
+        return sorted(ms)[1], ms
+
+    xp64 = x64.view(MAIN_MIB, GROUP)
+    lens64 = torch.full((MAIN_MIB,), GROUP, dtype=torch.int32, device=DEV)
+    timed = {
+        "fused_compress": (len(main_data), lambda: da._resident_compress(
+            xp64, lens64, GROUP, RES_TLOG, True)),
+        "roundtrip": (len(main_data), lambda: da.rans_resident_roundtrip(x64, GROUP)),
+        "mixed_roundtrip": (xm.numel(), lambda: bool(da._resident_mixed_rt(
+            xm, GROUP, RES_TLOG, coded_m)[0])),
+        # the entry points whole: frames on the host, the output on the GPU
+        "compress_resident": (len(main_data),
+                              lambda: da.rans_compress_resident(x64, GROUP)),
+        "decompress_resident": (len(main_data), lambda: da.rans_decompress_resident(
+            res_blobs["rows"], device=DEV)),
+    }
+    rates = {}
+    for name, (nbytes, fn) in timed.items():
+        ms, runs = median3(fn)
+        rates[name] = {"GBps": nbytes / (ms * 1e-3) / GB, "ms": ms, "runs_ms": runs}
+
+    # the fused compress by stage, each stage alone (CUDA events, median of 3)
+    counts64 = hist_count_masked(xp64, GROUP, lens64)
+    prep64 = da._resident_prep(xp64, lens64, GROUP, RES_TLOG)
+    enc_args = (prep64[5], prep64[6], prep64[7], GROUP // 4096, api._hrows_cap(GROUP),
+                RES_TLOG)
+    stage_ms = {
+        "hist": median3(lambda: hist_count_masked(xp64, GROUP, lens64))[0],
+        "norm": median3(lambda: fse_normalize_batch(counts64, lens64, RES_TLOG))[0],
+        "prep (hist, norm, tables, pad and view)": median3(
+            lambda: da._resident_prep(xp64, lens64, GROUP, RES_TLOG))[0],
+        "encode": median3(lambda: rk.rans_encode2(*enc_args, rowloc=True))[0]}
+
+    # where a whole rans_compress_resident call goes: torch.profiler, each
+    # stage's host time (its record_function range) and its span on the
+    # device's timeline (the range's twin there: first start to last end,
+    # gaps included), so the device idles at least 1 - sum(spans) / wall
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    da.rans_compress_resident(x64, GROUP)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        da.rans_compress_resident(x64, GROUP)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    host_ms = {}
+    for e in prof.events():
+        if e.name.startswith("resident.") and e.device_type == DeviceType.CPU:
+            host_ms[e.name] = host_ms.get(e.name, 0.0) + e.cpu_time_total / 1e3
+    span_ms = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.key.startswith("resident.")}
+    print(json.dumps({"phase": "resident", "gpu": gpu, "input_bytes": len(main_data),
+                      "mixed_input_bytes": xm.numel(),
+                      "fused_compress_GBps": rates["fused_compress"]["GBps"],
+                      "roundtrip_GBps": rates["roundtrip"]["GBps"],
+                      "mixed_roundtrip_GBps": rates["mixed_roundtrip"]["GBps"],
+                      "rates": rates,
+                      "fused_compress_stage_ms": stage_ms,
+                      "compress_split": {"call": f"rans_compress_resident, {MAIN_MIB} x 1 MiB",
+                                         "wall_ms": wall_ms, "host_ms_by_stage": host_ms,
+                                         "device_span_ms_by_stage": span_ms,
+                                         "device_idle_share_at_least":
+                                             1 - sum(span_ms.values()) / wall_ms}}),
+          flush=True)
 
     step_ns = chain_step_ns()
     # what a step of the function needs: the encoder's state recurrence;

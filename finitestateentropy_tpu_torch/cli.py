@@ -1,0 +1,263 @@
+"""Command-line interface: the JAX package's CLI (flag-compatible with the
+reference `fse` CLI, programs/commandline.c:94-109), with its TurboRANS
+half on the GPU.
+
+  python -m finitestateentropy_tpu_torch.cli -T [-d] [-t] [-f] [-M#] [-G#]
+      [--ratio | --sect rows|totals|none] [--pair N] [--quad N]
+      [--mesh N] [--windows N] [--device host|cuda] input [output]
+  ('-' reads stdin / writes stdout, as in the reference)
+
+`-T` runs the port's entry points on CUDA; with no CUDA device it exits 1
+unless `--device host` asks for the CPU, which runs the native host codec
+when it is built (native.py) and otherwise the entry points on the CPU.
+The compat codecs (-e / -h / -z without -T, --auto) and bench mode (-b)
+are not ported yet and exit 1.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+TURBO_EXTENSION = ".tfse"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="fse-torch", add_help=False)
+    p.add_argument("-e", dest="codec", action="store_const", const="fse", help="use FSE (default)")
+    p.add_argument("-h", dest="codec", action="store_const", const="huf", help="use HUF")
+    p.add_argument("-z", dest="codec", action="store_const", const="zlibh", help="use zlib huffman")
+    p.add_argument("-d", dest="decode", action="store_true", help="decompression")
+    p.add_argument("-t", dest="test", action="store_true", help="test mode (decode, no output)")
+    p.add_argument("-b", dest="bench", action="store_true", help="benchmark mode")
+    p.add_argument("-i", dest="iters", type=int, default=4, help="benchmark iterations")
+    p.add_argument("-B", dest="bsize", type=str, default=None, help="block size (K/M suffix)")
+    p.add_argument("-M", dest="table_log", type=int, default=0,
+                   help="tableLog (0 = mode default: turbo 10 speed / 11 "
+                        "ratio, compat 11)")
+    p.add_argument("-f", dest="force", action="store_true", help="overwrite output")
+    p.add_argument("-v", dest="verbose", action="count", default=0)
+    p.add_argument("-q", dest="quiet", action="count", default=0)
+    p.add_argument("-H", "--help", action="help")
+    p.add_argument("--auto", action="store_true",
+                   help="pick FSE vs HUF per file from block histograms")
+    p.add_argument("-T", "--turbo", action="store_true",
+                   help="TurboRANS frame format (lane-interleaved)")
+    p.add_argument("--ratio", action="store_true",
+                   help="turbo ratio mode (omit the speed section; pair "
+                        "with -G 4M for best ratio)")
+    p.add_argument("--sect", choices=["rows", "totals", "none"],
+                   default="rows",
+                   help="turbo speed-section wire: rows = fastest decode "
+                        "(default), totals = 4x smaller section, slower "
+                        "decode, none = best ratio (same as --ratio)")
+    p.add_argument("-G", dest="group", type=str, default="1M",
+                   help="turbo group size (K/M suffix)")
+    p.add_argument("--device", choices=["host", "cuda"], default=None,
+                   help="turbo compute path: cuda (the default when -T is "
+                        "given) or host (the native codec, else the entry "
+                        "points on the CPU)")
+    p.add_argument("--mesh", type=int, default=0, help="data-parallel device count")
+    p.add_argument("--windows", type=int, default=0,
+                   help="turbo decode entry: N > 1 the windowed entry at "
+                        "N-way interleave (rows wire), 1 the resident "
+                        "entry, 0 = picked per batch")
+    p.add_argument("--pair", type=int, default=-1, choices=[-1, 0, 1],
+                   help="turbo order-1 pair wire (2 bytes/decode-step): -1 "
+                        "auto per group (default), 0 off, 1 force when "
+                        "eligible")
+    p.add_argument("--quad", type=int, default=-1, choices=[-1, 0, 1],
+                   help="turbo order-3 quad wire (4 bytes/decode-step): "
+                        "-1 auto per group (default), 0 off, 1 force")
+    p.add_argument("--pair-tlog", type=int, default=0,
+                   help="pair-wire tableLog (0 = default 9)")
+    p.add_argument("--quad-tlog", type=int, default=0,
+                   help="quad-wire tableLog (0 = default 10)")
+    p.add_argument("input", nargs="?")
+    p.add_argument("output", nargs="?")
+    p.add_argument("rest", nargs="*",
+                   help="additional files (benchmark mode only)")
+    return p
+
+
+def _read_input(path: str) -> bytes:
+    """'-' reads stdin, as the reference CLI does (commandline.c:222-257)."""
+    if path == "-":
+        return sys.stdin.buffer.read()
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _write_output(path: str, data: bytes) -> None:
+    if path == "-":
+        sys.stdout.buffer.write(data)
+        sys.stdout.buffer.flush()
+    else:
+        with open(path, "wb") as f:
+            f.write(data)
+
+
+def _refuse_overwrite(path: str, force: bool) -> bool:
+    """Reference behavior (fileio.c:222-257): without -f, an existing output
+    triggers a y/N console prompt when stdin is interactive, otherwise the
+    operation is refused."""
+    import os
+
+    if path == "-" or force or not os.path.exists(path):
+        return False
+    if sys.stdin.isatty():
+        try:
+            ans = input(f"Warning: {path} already exists; overwrite? (y/N) ")
+        except EOFError:
+            ans = ""
+        if ans.strip().lower() in ("y", "yes"):
+            return False
+        print("operation aborted", file=sys.stderr)
+        return True
+    print(f"Error: {path} already exists; use -f to overwrite",
+          file=sys.stderr)
+    return True
+
+
+def _default_out(args, decode: bool, ext: str) -> str:
+    if args.output:
+        return args.output
+    if args.input == "-":
+        return "-"
+    return args.input.removesuffix(ext) if decode else args.input + ext
+
+
+def _parse_bsize(s: str) -> int:
+    mult = 1
+    if s and s[-1] in "Kk":
+        mult, s = 1 << 10, s[:-1]
+    elif s and s[-1] in "Mm":
+        mult, s = 1 << 20, s[:-1]
+    return int(s) * mult
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    verbosity = 2 + args.verbose - args.quiet
+
+    if args.bench:
+        print("bench mode (-b) is not yet ported", file=sys.stderr)
+        return 1
+    if args.rest:
+        print("too many arguments (multi-file lists are bench-mode only, "
+              "as in the reference CLI)", file=sys.stderr)
+        return 1
+    if not args.input:
+        print("missing input file", file=sys.stderr)
+        return 1
+    if not args.turbo:
+        print("the compat codecs (-e, -h, -z, --auto) are not yet ported; "
+              "use -T for TurboRANS", file=sys.stderr)
+        return 1
+    return _turbo_main(args, verbosity)
+
+
+def _turbo_main(args, verbosity: int) -> int:
+    """TurboRANS frame path: the entry points on CUDA; --device host asks
+    for the CPU: the native host codec when it is built, else the entry
+    points on the CPU (the JAX CLI's order when no TPU answers)."""
+    import torch
+
+    device = "cuda"
+    if args.device == "host":
+        from . import native
+        from .turbo.rans import RANS_TABLELOG
+
+        if native.available():
+            encode = not (args.decode or args.test)
+            if encode and args.ratio and args.table_log and \
+                    args.table_log != RANS_TABLELOG:
+                print(f"warning: ratio-mode native frames are tableLog "
+                      f"{RANS_TABLELOG}; ignoring -M {args.table_log}",
+                      file=sys.stderr)
+            return _turbo_native_main(args, verbosity)
+        device = "cpu"
+    elif not torch.cuda.is_available():
+        print("Error: -T runs on CUDA and no CUDA device is available; pass "
+              "--device host to run on the CPU", file=sys.stderr)
+        return 1
+
+    from .turbo.api import turbo_compress_device, turbo_decompress_device
+
+    decode = args.decode or args.test or args.input.endswith(TURBO_EXTENSION)
+    data = _read_input(args.input)
+    t0 = time.perf_counter()
+    if decode:
+        dst = _default_out(args, True, TURBO_EXTENSION)
+        if not args.test and _refuse_overwrite(dst, args.force):
+            return 1
+        out = turbo_decompress_device(data, mesh=args.mesh,
+                                      windows=args.windows, device=device)
+        if not args.test:
+            _write_output(dst, out)
+        if verbosity >= 2:
+            print(f"Decoded {len(out)} bytes in {time.perf_counter()-t0:.2f}s "
+                  "(includes the kernels' build on first use)", file=sys.stderr)
+    else:
+        dst = _default_out(args, False, TURBO_EXTENSION)
+        if _refuse_overwrite(dst, args.force):
+            return 1
+        kw = {"table_log": args.table_log} if args.table_log else {}
+        sect = "none" if args.ratio else args.sect
+        blob = turbo_compress_device(data, group_size=_parse_bsize(args.group),
+                                     steptots=sect != "none",
+                                     totals_only=sect == "totals",
+                                     mesh=args.mesh, pair=args.pair,
+                                     quad=args.quad,
+                                     pair_table_log=args.pair_tlog,
+                                     quad_table_log=args.quad_tlog,
+                                     device=device, **kw)
+        _write_output(dst, blob)
+        if verbosity >= 2:
+            ratio = 100.0 * len(blob) / max(len(data), 1)
+            print(f"Compressed {len(data)} bytes into {len(blob)} bytes "
+                  f"==> {ratio:.2f}%", file=sys.stderr)
+    return 0
+
+
+def _turbo_native_main(args, verbosity: int) -> int:
+    from .native import (rans_compress2_native, rans_compress_native,
+                         rans_decompress_native)
+
+    decode = args.decode or args.test or args.input.endswith(TURBO_EXTENSION)
+    data = _read_input(args.input)
+    t0 = time.perf_counter()
+    if decode:
+        dst = _default_out(args, True, TURBO_EXTENSION)
+        if not args.test and _refuse_overwrite(dst, args.force):
+            return 1
+        out = rans_decompress_native(data)
+        if not args.test:
+            _write_output(dst, out)
+        if verbosity >= 2:
+            print(f"Decoded {len(out)} bytes "
+                  f"({len(out)/max(time.perf_counter()-t0,1e-9)/1e6:.0f} MB/s, native)",
+                  file=sys.stderr)
+    else:
+        dst = _default_out(args, False, TURBO_EXTENSION)
+        if _refuse_overwrite(dst, args.force):
+            return 1
+        if args.ratio:   # v1 frames: no section, tableLog 11
+            blob = rans_compress_native(data,
+                                        group_size=_parse_bsize(args.group))
+        else:            # speed frames (FLAG_STEPTOTS/ROWS4), -M honored
+            blob = rans_compress2_native(data,
+                                         group_size=_parse_bsize(args.group),
+                                         table_log=args.table_log or 0)
+        _write_output(dst, blob)
+        if verbosity >= 2:
+            ratio = 100.0 * len(blob) / max(len(data), 1)
+            print(f"Compressed {len(data)} bytes into {len(blob)} bytes "
+                  f"==> {ratio:.2f}% "
+                  f"({len(data)/max(time.perf_counter()-t0,1e-9)/1e6:.0f} MB/s, native)",
+                  file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -187,16 +187,22 @@ def _wire_t4(wire: str, n_pad: int) -> int:
     return n_pad // (TURBO_LANES * SPC[wire])
 
 
+def group_spans(n: int, group_size: int) -> list[tuple[int, int]]:
+    """(start, length) of each group of an n-byte buffer; a ragged
+    multi-MiB tail whose PADDED size breaks the 1 MiB chunking rule splits
+    at its last 1 MiB boundary."""
+    spans = [(i, min(group_size, n - i)) for i in range(0, n, group_size)]
+    if group_size > DEFAULT_GROUP and spans and spans[-1][1] > DEFAULT_GROUP \
+            and _pad_n(spans[-1][1]) % DEFAULT_GROUP:
+        st, ln = spans.pop()
+        cut = ln // DEFAULT_GROUP * DEFAULT_GROUP
+        spans += [(st, cut), (st + cut, ln - cut)]
+    return spans
+
+
 def split_groups(src: np.ndarray, group_size: int) -> list[np.ndarray]:
-    """Cut a buffer into groups; a ragged multi-MiB tail whose PADDED size
-    breaks the 1 MiB chunking rule splits at its last 1 MiB boundary."""
-    chunks = [src[i : i + group_size] for i in range(0, len(src), group_size)]
-    if group_size > DEFAULT_GROUP and chunks and len(chunks[-1]) > DEFAULT_GROUP \
-            and _pad_n(len(chunks[-1])) % DEFAULT_GROUP:
-        tail = chunks.pop()
-        cut = len(tail) // DEFAULT_GROUP * DEFAULT_GROUP
-        chunks.extend([tail[:cut], tail[cut:]])
-    return chunks
+    """Cut a buffer into groups (group_spans)."""
+    return [src[st : st + ln] for st, ln in group_spans(len(src), group_size)]
 
 
 _SYM_DTYPE = {"byte": np.uint8, "pair": np.uint16, "quad": np.uint32}
@@ -349,6 +355,22 @@ def mode_flags(table_log: int, steptots: bool, totals_only: bool,
     return table_log, pair, quad
 
 
+def check_byte_args(table_log: int, group_size: int) -> None:
+    """Raise ValueError unless the byte-path compress can take table_log
+    (its tables have 12-bit freq and cumul fields) and group_size (the JAX
+    encoder's budget and 1 MiB chunking, which shape the frames)."""
+    if not 5 <= table_log <= 12:
+        raise ValueError(f"byte-path tableLog must be in [5, 12], got {table_log}")
+    if group_size > MAX_GROUP:
+        raise ValueError(
+            f"group_size {group_size} exceeds the encode kernel's budget; "
+            f"use <= {MAX_GROUP}")
+    if group_size > DEFAULT_GROUP and group_size % DEFAULT_GROUP:
+        raise ValueError(
+            "group sizes above 1 MiB must be a multiple of 1 MiB "
+            "(the encode kernel chunks src reads in 1 MiB spans)")
+
+
 def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
                           interpret: bool = False,
                           table_log: int = 0,
@@ -388,17 +410,7 @@ def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
     mesh_obj = _mesh_of(mesh, dev)
     table_log, pair, quad = mode_flags(table_log, steptots, totals_only,
                                        pair, quad)
-    if not 5 <= table_log <= 12:
-        # the byte-path table packings use 12-bit freq/cumul fields
-        raise ValueError(f"byte-path tableLog must be in [5, 12], got {table_log}")
-    if group_size > MAX_GROUP:
-        raise ValueError(
-            f"group_size {group_size} exceeds the encode kernel's budget; "
-            f"use <= {MAX_GROUP}")
-    if group_size > DEFAULT_GROUP and group_size % DEFAULT_GROUP:
-        raise ValueError(
-            "group sizes above 1 MiB must be a multiple of 1 MiB "
-            "(the encode kernel chunks src reads in 1 MiB spans)")
+    check_byte_args(table_log, group_size)
     if len(data) == 0:
         return _HDR.pack(RANS_MAGIC, 0, 0, 0, FLAG_RAW, 0)
     with _stage("c_prep", dev):

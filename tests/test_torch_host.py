@@ -4,6 +4,8 @@ finitestateentropy_tpu_torch keeps its own copies of the host modules it
 needs (it must import nothing of the JAX package); each copy is held equal
 to the original here, on the three benchmark corpora.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -443,3 +445,85 @@ def test_v0_format_copy_equal(name):
     for k in ("TURBO_MAGIC", "TURBO_LANES", "TURBO_STEP_SYMS", "TURBO_TABLELOG",
               "FLAG_RAW", "FLAG_RLE"):
         assert getattr(p_format, k) == getattr(j_format, k)
+
+
+def test_xxhash32_copy_equal():
+    """utils/xxhash32.py: the oracle vectors of tests/data_xxh_vectors.txt
+    and the original's hashes of the corpora, with seeds."""
+    import finitestateentropy_tpu.utils.xxhash32 as j_xxh
+    import finitestateentropy_tpu_torch.utils.xxhash32 as p_xxh
+
+    vectors = (Path(__file__).parent / "data_xxh_vectors.txt").read_text()
+    buf, s = bytearray(1031), 2654435761
+    for i in range(len(buf)):
+        s = (s * 2654435761 + 2246822519) & 0xFFFFFFFF
+        buf[i] = (s >> 11) & 0xFF
+    for line in vectors.splitlines():
+        ln, seed, h32, _h64 = line.split()
+        assert p_xxh.xxh32(bytes(buf[: int(ln)]), int(seed)) == int(h32, 16)
+    for name in CORPORA:
+        for n in (0, 15, 16, 4097, 65536):
+            d = _corpus(name)[:n]
+            for seed in (0, 1, 2654435761):
+                assert p_xxh.xxh32(d, seed) == j_xxh.xxh32(d, seed)
+
+
+def test_jobs_copy_equal(tmp_path):
+    """io/jobs.py: the metrics record and the manifest of a job, and the
+    streams of the same compressor, equal the original's."""
+    import finitestateentropy_tpu.io.jobs as j_jobs
+    import finitestateentropy_tpu_torch.io.jobs as p_jobs
+
+    assert p_jobs.MANIFEST_SUFFIX == j_jobs.MANIFEST_SUFFIX
+    for m in ({}, dict(groups_done=3, bytes_in=3000, bytes_out=700,
+                       seconds=0.5)):
+        assert p_jobs.JobMetrics(**m).as_dict() == j_jobs.JobMetrics(**m).as_dict()
+    src = tmp_path / "in.bin"
+    src.write_bytes(_corpus("p14", 200_000).tobytes())
+    for mod, out in ((p_jobs, "p.tfse"), (j_jobs, "j.tfse")):
+        mod.compress_file_resumable(src, tmp_path / out, group_size=65536,
+                                    compress_group=p_rans.rans_compress,
+                                    max_groups=2)
+        mod.compress_file_resumable(src, tmp_path / out, group_size=65536,
+                                    compress_group=p_rans.rans_compress)
+    assert (tmp_path / "p.tfse").read_bytes() == (tmp_path / "j.tfse").read_bytes()
+    assert p_jobs.job_status(tmp_path / "p.tfse") == j_jobs.job_status(tmp_path / "j.tfse")
+    assert p_jobs.job_status(tmp_path / "none.tfse") is None
+
+
+def test_native_copy_equal():
+    """native.py: the port's bindings load the same library and give the
+    original's outputs: both encoders, the group prep, the decoders on
+    byte, pair and quad frames, the u16 codec and the header walk."""
+    import finitestateentropy_tpu.native as j_native
+    import finitestateentropy_tpu_torch.native as p_native
+
+    if not (p_native.available() and j_native.available()):
+        pytest.skip("native/libturbofse.so could not be built")
+    assert p_native._LIB == j_native._LIB
+    data = b"".join(_corpus(n, 100_000).tobytes() for n in CORPORA) + b"R" * 5000
+    for group in (65536, 1 << 20):
+        a = p_native.rans_compress_native(data, group_size=group)
+        assert a == j_native.rans_compress_native(data, group_size=group)
+        assert p_native.rans_decompress_native(a) == data
+        for tlog in (0, 9, 12):
+            b = p_native.rans_compress2_native(data, group, tlog)
+            assert b == j_native.rans_compress2_native(data, group, tlog)
+            assert p_native.rans_decompress_native(b) == data
+    for name in CORPORA:
+        chunk = _corpus(name).tobytes()
+        for tlog in (10, 11):
+            got = p_native.prep_group_native(chunk, tlog)
+            want = j_native.prep_group_native(chunk, tlog)
+            assert got[1:] == want[1:] and np.array_equal(got[0], want[0])
+    assert p_native.prep_group_native(b"Q" * 1000) is None
+    # default-flag frames of the port mix pair / quad / byte groups
+    mixed = p_api.turbo_compress_device(data, 65536, device="cpu")
+    assert p_native._walk_groups(mixed) == j_native._walk_groups(mixed)
+    assert p_native.rans_decompress_native(mixed) == data
+    sym = np.clip((np.random.default_rng(0).pareto(1.2, 300_000) * 50)
+                  .astype(np.int64), 0, 1023).astype(np.uint16)
+    blob16 = p_native.rans16_compress_native(sym, 1 << 17)
+    assert blob16 == j_native.rans16_compress_native(sym, 1 << 17)
+    assert p_native._walk_groups16(blob16) == len(sym)
+    assert np.array_equal(p_native.rans16_decompress_native(blob16), sym)

@@ -20,11 +20,14 @@ import finitestateentropy_tpu_torch as pkg
 names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
 for name in sorted(names):
     importlib.import_module(name)
-# the multi-device layer and the v0 codec are among them
+# the multi-device layer, the v0 codec, the resident pipeline and its
+# device ops, the CLI and its host modules are among them
 assert {pkg.__name__ + "." + m for m in (
     "parallel.mesh", "parallel.turbo_dp", "parallel.distributed",
     "parallel.dryrun", "turbo.kernels", "turbo.format",
-    "refimpl.tables")} <= names, sorted(names)
+    "refimpl.tables", "ops.hist", "ops.norm", "ops.rans_tables",
+    "turbo.device_api", "native", "utils.xxhash32", "io.jobs",
+    "cli")} <= names, sorted(names)
 from finitestateentropy_tpu_torch.turbo.api import (turbo_compress_device,
                                                     turbo_decompress_device)
 from finitestateentropy_tpu_torch.turbo.rans import rans_compress
@@ -48,6 +51,14 @@ ins = to_tensors("cpu", csize_bits=cs, tables=tbl, init_states=init, streams=st)
 out, err = turbo_fse_decode(*ins.values(), t4, wrows)
 assert err.tolist() == [0] and out[0].numpy().tobytes() == data
 assert turbo_fse_decompress(v0) == data
+import numpy as np
+import torch
+from finitestateentropy_tpu_torch.turbo import (rans_compress_resident,
+                                                rans_decompress_resident)
+x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+resident = rans_compress_resident(x, 40960)
+assert resident == blob
+assert rans_decompress_resident(resident, device="cpu").numpy().tobytes() == data
 print("ok")
 """
 
@@ -68,7 +79,9 @@ def test_sources_import_no_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     assert {"mesh.py", "turbo_dp.py", "distributed.py", "dryrun.py",
-            "kernels.py", "format.py", "tables.py"} <= {f.name for f in files}
+            "kernels.py", "format.py", "tables.py", "device_api.py",
+            "rans_tables.py", "native.py", "xxhash32.py", "jobs.py",
+            "cli.py"} <= {f.name for f in files}
     offenders = [str(f.relative_to(REPO)) for f in files
                  if bad.search(f.read_text())]
     assert offenders == []
