@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke for finitestateentropy_tpu_torch: the TurboRANS codecs on one GPU.
+"""Chip smoke for finitestateentropy_tpu_torch: the TurboRANS and compat codecs on one GPU.
 
 Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
@@ -17,8 +17,10 @@ Phases, one result line each:
      u16x), and each decode entry (rans_decode_v2 and rans_decode_w on the
      rows and totals wires, rans_decode on v1 frames, turbo_fse_decode on
      v0 frames) with group 1 corrupted (its err must be set, the others'
-     not);
-  4. twenty paths, each with the launch counts set to 0 just before it
+     not); and the compat kernels (fse_encode, fse_decode, huf_encode_4x,
+     huf_decode_4x x1 and x2) on 4 KiB blocks of Proba80 / 14 / 2, a
+     ragged, an n = 2 and a 13-byte block, one endMark byte zeroed;
+  4. twenty-six paths, each with the launch counts set to 0 just before it
      and read just after; twelve through the entry points
      (turbo_compress_device / turbo_decompress_device,
      turbo16_compress_device / turbo16_decompress_device):
@@ -93,8 +95,31 @@ Phases, one result line each:
                           -T -d: the file comes back and the .tfse equals
                           turbo_compress_device's (one quad encode and one
                           quad rans_decode_w, counted in the child).
-     Every round trip gives back its input and every frame equals the
-     port's numpy twin of the wire and mode its group was coded in
+     and the compat codecs (models/, io/frame.py) at the CLI's 32 KiB blocks:
+       fse_p80_64MiB, huf_p80_64MiB
+                          64 MiB of Proba80 through fio.compress_bytes with
+                          FseTpuCodec / HufTpuCodec and back through
+                          decompress_bytes: 2048 blocks, one encode and one
+                          decode (x1) launch; the frames begin with the
+                          blocks of the first 8 MiB's device frame, which
+                          equals the host twin's; the twin decodes the
+                          device frame of the first 4 MiB;
+       huf_x2_p80_8MiB    the X2 decoder on that 8 MiB Huff0 frame (tables
+                          built on the host): one x2 launch;
+       compat_mixed_8MiB  8 x 1 MiB of Proba80, Proba14, random and
+                          one-byte groups and a ragged tail through FSE,
+                          Huff0 and AutoTpuCodec, each decoded by its magic;
+                          the frames equal the twin's;
+       cli_compat_p80_8MiB
+                          the CLI in a child process: -e, -h and --auto,
+                          each then -d, and -z --device host then -d; the
+                          frames equal --device host's (the twin's);
+       mesh_compat_p80    the codecs over make_mesh() (one card: one shard):
+                          sharded_encode / _decode / _huf_encode /
+                          _huf_decode, a launch per shard; the frames equal
+                          the single-device ones.
+     Every round trip gives back its input and every TurboRANS frame equals
+     the port's numpy twin of the wire and mode its group was coded in
      (quad_compress, pair_compress, rans_compress, rans16_compress);
   5. every batch of each path, planned and staged as the entry points do
      it (the dry run's on its own inputs and shapes; the resident paths'
@@ -105,9 +130,13 @@ Phases, one result line each:
      path's launches, and every entry and mode is launched by
      some path but two, which no path of the JAX package runs either
      (rans_encode:byte, rans_encode2_flat:u16x): those are checked at the
-     shapes of the byte and u16x paths;
+     shapes of the byte and u16x paths; a compat batch is held whole
+     against its plain version on the GPU, run once a distinct input (its
+     decode batch staged from the items the frame layer handed the codec);
   6. end-to-end GB/s of the default-flag path (and of the byte wire), the
-     entry points' own stage seconds on the default-flag path, the resident
+     entry points' own stage seconds on the default-flag path, the compat
+     codecs' GB/s on their 64 MiB paths (median of 3) with the codecs' stage
+     seconds and the frame checksum's time, the resident
      pipeline's rates (fused compress, round trip, mixed round trip and the
      resident entries whole; CUDA events, median of 3) with a
      torch.profiler split of rans_compress_resident by stage, per-step
@@ -125,6 +154,7 @@ as does a machine without a CUDA device.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import subprocess
 import sys
@@ -196,6 +226,34 @@ except SystemExit as e:
 print(json.dumps({k: v for k, v in rk.launches.items() if v}), file=sys.stderr)
 sys.exit(code)
 """
+# the compat codecs (models/, io/frame.py): the CLI's default 32 KiB blocks
+COMPAT_BID = 5
+COMPAT_BLOCK = 1 << (10 + COMPAT_BID)
+COMPAT_MIB = 8                 # the x2, mixed, CLI and mesh paths
+# the frames held against the host twin are the first COMPAT_MIB, and the
+# twin decodes a frame of the first 4 MiB: the twin is pure Python, one
+# block after another on one core, so the whole 64 MiB would cost minutes
+TWIN_DECODE_MIB = 4
+# integer operations a symbol of each compat function needs, whatever the
+# design.  FSE encode: the symbol load 1, two transform reads 2, nb (add,
+# shift) 2, the state shift and add 2, the table read 1, the value mask
+# (shift, subtract, and) 3, the bit container (shift, or, count) 3, the
+# word test 1.  FSE decode: the table read 1, symbol and nb fields 3, the
+# cursor 1, the field read (word index, shift amount, two stream reads, the
+# funnel shift, the mask 3) 8, the new state (field, add) 2, the byte store
+# 1.  Huff0 encode: the byte load 1, value and nb reads 2, the mask 3, the
+# container 3, the word test 1.  Huff0 decode x1: the available bits (min,
+# max) 2, the field read 8, the index shift 2, byte and nb reads 2, the
+# store 1, the cursor 1; x2 a lookup the same plus its fields (nb, length,
+# last test) 4, a lookup giving 1-2 bytes: 18 a byte.
+COMPAT_OPS = {"fse_encode": 16, "fse_decode": 17, "huf_encode_4x": 10,
+              "huf_decode_4x:x1": 16, "huf_decode_4x:x2": 18}
+COMPAT_KERNEL = {  # key -> (CUDA source, JAX function, file:line in finitestateentropy_tpu/)
+    "fse_encode": ("fse_encode.cu", "ops/fse_kernels.py:138"),
+    "fse_decode": ("fse_decode.cu", "ops/fse_kernels.py:58"),
+    "huf_encode_4x": ("huf_encode.cu", "ops/huf_kernels.py:29"),
+    "huf_decode_4x:x1": ("huf_decode.cu", "ops/huf_kernels.py:139"),
+    "huf_decode_4x:x2": ("huf_decode.cu", "ops/huf_kernels.py:210")}
 FLAT_THREADS = 512             # a group's block in csrc/rans_decode_flat.cu
 V0_THREADS = 256               # and in csrc/turbo_fse_decode.cu
 KERNEL_LINE = {  # entry -> TPU kernel, file:line in finitestateentropy_tpu/turbo/
@@ -230,6 +288,19 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_call(fn) -> tuple:
+    """fn()'s result and the device time of that one call in ms (CUDA
+    events, no warm-up)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def device_ms(fn, kernel: str, reps: int) -> dict:
@@ -269,10 +340,18 @@ def max_abs_err(got, want) -> int:
 # source file -> the start of its kernel functions' names
 KERNEL_FN = {"rans_encode.cu": "rans_encode_", "rans_decode.cu": "rans_decode_rows",
              "rans_decode_flat.cu": "rans_decode_flat",
-             "turbo_fse_decode.cu": "turbo_fse_decode"}
+             "turbo_fse_decode.cu": "turbo_fse_decode",
+             "fse_encode.cu": "fse_encode_kernel", "fse_decode.cu": "fse_decode_kernel",
+             "huf_encode.cu": "huf_encode_kernel", "huf_decode.cu": "huf_decode_kernel"}
+
+
+def is_encode(key: str) -> bool:
+    return key.startswith("rans_encode") or key in ("fse_encode", "huf_encode_4x")
 
 
 def source_of(key: str) -> str:
+    if key in COMPAT_KERNEL:
+        return "finitestateentropy_tpu_torch/csrc/" + COMPAT_KERNEL[key][0]
     entry, mode = key.split(":")
     if entry.startswith("rans_encode"):
         name = "rans_encode.cu"
@@ -286,6 +365,8 @@ def source_of(key: str) -> str:
 
 
 def replaces(key: str) -> str:
+    if key in COMPAT_KERNEL:
+        return "finitestateentropy_tpu/" + COMPAT_KERNEL[key][1]
     entry = key.split(":")[0]
     return "finitestateentropy_tpu/turbo/" + KERNEL_LINE.get(key, KERNEL_LINE[entry])
 
@@ -390,12 +471,14 @@ def chain_step_ns() -> dict:
 
 def dryrun_launches(m: int) -> dict:
     """Launches of dryrun_multichip(m) on m CUDA devices: one per shard of
+    the compat step (sharded_fse_step: an FSE encode and decode) and of
     each sharded round trip (the windowed one runs on min(m, 2) devices);
     then the mixed frame, whose two coded 16 KiB groups of Proba80 go pair
     at default flags: a pair encode per shard for the mesh compress (mesh=1
     is single-device: one), one for the single-device compress, and a pair
     decode per shard."""
-    return {"rans_encode2_flat:byte": 2 * m, "rans_decode:byte": m,
+    return {"fse_encode": m, "fse_decode": m,
+            "rans_encode2_flat:byte": 2 * m, "rans_decode:byte": m,
             "rans_decode_v2:byte": m, "rans_encode2:byte": min(m, 2),
             "rans_decode_w:byte": min(m, 2), "rans_encode2_flat:u16": m,
             "rans_decode_v2:u16": m, "rans_encode2:pair": m + m + 1,
@@ -429,6 +512,213 @@ class Piece:
     @property
     def nbytes(self) -> int:
         return len(self.data) * (2 if self.codec == "turbo16" else 1)
+
+
+def recording(decompress, into: list):
+    """decompress, keeping in `into` the compressed blocks the frame layer
+    hands it ([(payload, regenerated size)]): the items a path's decode
+    batch is staged from."""
+    def run(items):
+        into.extend(items)
+        return decompress(items)
+    return run
+
+
+def compat_ident(key: str, staged: dict) -> tuple:
+    """A compat batch's key and a digest of its staged inputs: batches of
+    equal inputs (the same 8 MiB through several paths) are held against
+    one run of the plain version."""
+    h = hashlib.sha1()
+    for k in sorted(staged):
+        v = staged[k]
+        h.update(k.encode())
+        h.update(v.tobytes() if isinstance(v, np.ndarray) else repr(v).encode())
+    return key, h.hexdigest()
+
+
+def compat_encode_batches(codec, blocks, shards: int = 1) -> list[dict]:
+    """The encode batch of blocks, planned and staged as the codec's
+    compress_blocks does it (encode_plan, encode_inputs, the tables on the
+    card): {key, ident, run (the wrapper) and plain (the plain version),
+    both on the card at the path's shapes and compared whole, kernel (the
+    bare launch), G, steps, ops, nbytes, chain, shards}."""
+    from finitestateentropy_tpu_torch.ops import fse_kernels as fk, fse_tables
+    from finitestateentropy_tpu_torch.ops import huf_kernels as hk
+
+    _res, todo = codec.encode_plan(blocks)
+    if not todo:
+        return []
+    e = codec.encode_inputs(todo)
+    t = {k: torch.from_numpy(v).to(DEV) for k, v in e.items() if isinstance(v, np.ndarray)}
+    B, n = len(todo), e["n"].astype(np.int64)
+    if "norm" in e:
+        ct = fse_tables.build_ctables(t["norm"], t["tlog"])
+        args = (t["src"], t["n"], t["tlog"], ct)
+        kw = dict(max_syms=e["max_syms"], out_bytes=e["out_bytes"])
+        tbl_bytes = sum(c.numel() * 4 for c in ct)
+        return [dict(key="fse_encode", ident=compat_ident("fse_encode", e), G=B,
+                     shards=shards, chain="lookup", steps=int((n.max() + 1) // 2),
+                     ops=COMPAT_OPS["fse_encode"] * int(n.sum()),
+                     run=partial(fk.fse_encode_batch, *args, **kw),
+                     plain=partial(fk.fse_encode_batch_plain, *args, **kw),
+                     kernel=partial(fk._encode_kernel, *args, kw["max_syms"], kw["out_bytes"]),
+                     # the source once, the tables, n and tableLog, the payload, csize
+                     nbytes=lambda o: int(n.sum()) + tbl_bytes + 8 * B
+                     + int(o[1].long().sum()) + 4 * B)]
+    args = (t["src"], t["n"], t["val"], t["nb"], e["max_block"], e["seg_bytes"])
+    seg = (n + 3) // 4
+    return [dict(key="huf_encode_4x", ident=compat_ident("huf_encode_4x", e), G=B,
+                 shards=shards, chain="none", steps=int(seg.max()),
+                 ops=COMPAT_OPS["huf_encode_4x"] * int(n.sum()),
+                 run=partial(hk.huf_encode_4x_batch, *args),
+                 plain=partial(hk.huf_encode_4x_batch_plain, *args),
+                 kernel=partial(hk._encode_kernel, *args),
+                 # the source once, the code tables, n, the streams, their sizes
+                 nbytes=lambda o: int(n.sum()) + 8 * t["val"].numel() + 4 * B
+                 + int(o[1].long().sum()) + 16 * B)]
+
+
+def compat_decode_batches(codec, items, shards: int = 1) -> list[dict]:
+    """The decode batch of a frame's compressed blocks, staged as the
+    codec's decompress_blocks does it (decode_inputs, the tables on the
+    card; the X2 tables built on the host), fields as
+    compat_encode_batches'.  The chain is the longest stream's lookups:
+    n/2 a state (FSE), seg (Huff0 x1), and for x2 the lookups that run (one
+    or two bytes each), counted by huf_decode_4x2_lookups."""
+    from finitestateentropy_tpu_torch.ops import fse_kernels as fk, fse_tables
+    from finitestateentropy_tpu_torch.ops import huf_kernels as hk
+
+    d = codec.decode_inputs(items)
+    t = {k: torch.from_numpy(v).to(DEV) for k, v in d.items() if isinstance(v, np.ndarray)}
+    B = len(items)
+    cs, nout = d["csize"].astype(np.int64), d["n_out"].astype(np.int64)
+    if "norm" in d:
+        dt = fse_tables.build_dtables(t["norm"], t["tlog"])[:3]
+        args = (t["streams"], t["csize"], t["n_out"], t["tlog"], dt)
+        kw = dict(max_out=d["max_out"])
+        tbl_bytes = sum(x.numel() * 4 for x in dt)
+        return [dict(key="fse_decode", ident=compat_ident("fse_decode", d), G=B,
+                     shards=shards, chain="lookup", steps=int((nout.max() + 1) // 2),
+                     ops=COMPAT_OPS["fse_decode"] * int(nout.sum()),
+                     run=partial(fk.fse_decode_batch, *args, **kw),
+                     plain=partial(fk.fse_decode_batch_plain, *args, **kw),
+                     kernel=partial(fk._decode_kernel, *args[:4], fk.pack_dtable(*dt),
+                                    d["max_out"]),
+                     # the payload, the tables, csize / n_out / tableLog, out, err
+                     nbytes=lambda o: int(cs.sum()) + tbl_bytes + 12 * B + int(nout.sum()) + B)]
+    head = (t["streams"], t["csize"], t["n_out"])
+    if codec.decoder == "x2":
+        key, wrapper, plain = ("huf_decode_4x:x2", hk.huf_decode_4x2_batch,
+                               hk.huf_decode_4x2_batch_plain)
+        tl4 = torch.from_numpy(np.repeat(d["x2_tlog"], 4)).to(DEV)
+        tables = (torch.from_numpy(np.repeat(d["x2_tbl"], 4, axis=0)).to(DEV),)
+        arg = tables[0]
+        steps = int(hk.huf_decode_4x2_lookups(*head, tl4, arg, d["max_seg"]).max())
+    else:
+        key, wrapper, plain = ("huf_decode_4x:x1", hk.huf_decode_4x1_batch,
+                               hk.huf_decode_4x1_batch_plain)
+        tl4 = t["tlog"]
+        bt, nt = hk.build_dtables_x1(t["weights"], tl4.view(B, 4)[:, 0])
+        tables = (bt.repeat_interleave(4, dim=0), nt.repeat_interleave(4, dim=0))
+        arg, steps = tables, int(nout.max())
+    full = (*head, tl4, arg, d["max_seg"])
+    tbl_bytes = sum(x.numel() * x.element_size() for x in tables)
+    return [dict(key=key, ident=compat_ident(key, d), G=B, shards=shards, chain="lookup",
+                 steps=steps, ops=COMPAT_OPS[key] * int(nout.sum()),
+                 run=partial(wrapper, *full), plain=partial(plain, *full),
+                 kernel=partial(hk._decode_kernel, *head, tl4, tables, d["max_seg"],
+                                key.endswith("x2")),
+                 # the streams, the tables, csize / n_out / tableLog, out, err
+                 nbytes=lambda o: int(cs.sum()) + tbl_bytes + 12 * 4 * B
+                 + int(nout.sum()) + 4 * B)]
+
+
+def compat_small_cases() -> list[dict]:
+    """C1-C5 at small shapes (4 KiB blocks of Proba80 / 14 / 2, a ragged
+    block, an n = 2 block; Huff0 blocks of 13 bytes and odd lengths), each
+    wrapper's outputs against its plain version's, whole; the decodes with
+    one endMark byte zeroed (FSE block 2; Huff0 block 2, stream 0): {key,
+    run, plain, err (the flags the decode must give)}."""
+    from finitestateentropy_tpu_torch.ops import bitio, fse_kernels as fk, fse_tables
+    from finitestateentropy_tpu_torch.ops import huf_kernels as hk
+    from finitestateentropy_tpu_torch.refimpl.hist import hist_count
+    from finitestateentropy_tpu_torch.refimpl.huf import (huf_build_ctable,
+                                                          huf_read_dtable_x2,
+                                                          huf_read_stats,
+                                                          huf_write_ctable)
+    from finitestateentropy_tpu_torch.refimpl.norm import (fse_normalize_count,
+                                                           fse_optimal_table_log)
+    from finitestateentropy_tpu_torch.utils import generate_proba
+
+    S = 4096
+    p80, p14, p02 = (generate_proba(p, S) for p in (80, 14, 2))
+    blocks = [p80, p14, p02, p14[:1001], b"\x05\x09"]
+    B = len(blocks)
+    src = np.zeros((B, S), np.uint8)
+    norms = np.zeros((B, 256), np.int32)
+    tlogs, ns = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    for k, b in enumerate(blocks):
+        arr = np.frombuffer(b, np.uint8)
+        max_sv = int(arr.max())
+        norm, tlogs[k] = fse_normalize_count(
+            fse_optimal_table_log(11, len(b), max_sv),
+            np.bincount(arr, minlength=256)[: max_sv + 1], len(b), max_sv)
+        src[k, : len(b)], ns[k] = arr, len(b)
+        norms[k, : len(norm)] = norm
+    on = {k: torch.from_numpy(v).to(DEV) for k, v in
+          (("src", src), ("n", ns), ("norm", norms), ("tlog", tlogs))}
+    ct = fse_tables.build_ctables(on["norm"], on["tlog"])
+    enc = (on["src"], on["n"], on["tlog"], ct)
+    kw = dict(max_syms=S, out_bytes=S + 64)
+    words, csize = fk.fse_encode_batch_plain(*enc, **kw)
+    streams = bitio.words_to_bytes(words)
+    streams[2, int(csize[2]) - 1] = 0
+    dec = (streams, csize, on["n"], on["tlog"], fse_tables.build_dtables(on["norm"], on["tlog"])[:3])
+    cases = [dict(key="fse_encode", run=partial(fk.fse_encode_batch, *enc, **kw),
+                  plain=partial(fk.fse_encode_batch_plain, *enc, **kw), err=None),
+             dict(key="fse_decode", run=partial(fk.fse_decode_batch, *dec, max_out=S),
+                  plain=partial(fk.fse_decode_batch_plain, *dec, max_out=S),
+                  err=[False, False, True, False, False])]
+
+    hblocks = [p80, p14, p80[:S - 1], p80[100:113], p14[:517]]
+    B = len(hblocks)
+    hsrc, hn = np.zeros((B, S), np.uint8), np.zeros(B, np.int32)
+    val, nb = np.zeros((B, 256), np.int32), np.zeros((B, 256), np.int32)
+    weights, tls = np.zeros((B, 256), np.int32), np.zeros(B, np.int32)
+    x2 = np.zeros((B, 4096), np.int32)
+    x2_tl = np.zeros(B, np.int32)
+    for k, b in enumerate(hblocks):
+        count, max_sv, _ = hist_count(b)
+        table = huf_build_ctable(count, max_sv, fse_optimal_table_log(
+            11, len(b), max_sv, minus=1, max_allowed=12))
+        header = huf_write_ctable(table, max_sv)
+        w, _rs, _nsym, tls[k], _used = huf_read_stats(header)
+        weights[k, : len(w)] = np.frombuffer(w, np.uint8)
+        dt2 = huf_read_dtable_x2(header)[0]
+        x2[k], x2_tl[k] = hk.pack_dtable_x2(dt2), dt2.table_log
+        hsrc[k, : len(b)], hn[k] = np.frombuffer(b, np.uint8), len(b)
+        val[k, : max_sv + 1], nb[k, : max_sv + 1] = table.val, table.nb_bits
+    henc = tuple(torch.from_numpy(a).to(DEV) for a in (hsrc, hn, val, nb)) + (S, S // 4 + 64)
+    hwords, sizes = hk.huf_encode_4x_batch_plain(*henc)
+    hstreams = bitio.words_to_bytes(hwords.view(4 * B, -1))
+    sizes = sizes.view(-1)
+    hstreams[8, int(sizes[8]) - 1] = 0
+    seg = (torch.from_numpy(hn).long() + 3) // 4
+    nout = torch.stack([seg, seg, seg, torch.from_numpy(hn).long() - 3 * seg], 1).view(-1)
+    head = (hstreams, sizes, nout.to(torch.int32).to(DEV))
+    bt, nt = hk.build_dtables_x1(torch.from_numpy(weights).to(DEV), torch.from_numpy(tls).to(DEV))
+    x1 = (*head, torch.from_numpy(np.repeat(tls, 4)).to(DEV),
+          (bt.repeat_interleave(4, 0), nt.repeat_interleave(4, 0)), S // 4)
+    x2a = (*head, torch.from_numpy(np.repeat(x2_tl, 4)).to(DEV),
+           torch.from_numpy(np.repeat(x2, 4, axis=0)).to(DEV), S // 4)
+    flags = [r == 8 for r in range(4 * B)]
+    return cases + [
+        dict(key="huf_encode_4x", run=partial(hk.huf_encode_4x_batch, *henc),
+             plain=partial(hk.huf_encode_4x_batch_plain, *henc), err=None),
+        dict(key="huf_decode_4x:x1", run=partial(hk.huf_decode_4x1_batch, *x1),
+             plain=partial(hk.huf_decode_4x1_batch_plain, *x1), err=flags),
+        dict(key="huf_decode_4x:x2", run=partial(hk.huf_decode_4x2_batch, *x2a),
+             plain=partial(hk.huf_decode_4x2_batch_plain, *x2a), err=flags)]
 
 
 def main() -> int:
@@ -701,6 +991,15 @@ def main() -> int:
         checked.add(b["key"])
     check_decode(v0_batch([turbo_fse_compress(corpus[i * GROUP:(i + 1) * GROUP])
                            for i in range(3)]))
+    # the compat kernels at small shapes; a missing endMark is flagged
+    for c in compat_small_cases():
+        got, want = c["run"](), c["plain"]()
+        torch.cuda.synchronize()
+        errs[c["key"]] = max(errs[c["key"]], max_abs_err(got, want))
+        if c["err"] is not None:
+            require(got[1].tolist() == c["err"],
+                    f"{c['key']}: flags {got[1].tolist()} on the corrupt batch")
+        checked.add(c["key"])
     require(checked == set(rk.launches),
             f"not checked against plain: {sorted(set(rk.launches) - checked)}")
     require(max(errs.values()) == 0, f"a kernel differs from its plain version: {errs}")
@@ -804,7 +1103,21 @@ def main() -> int:
              "rans_decode_v2", dict(u16=True, pair=True), m),
             (dr.multibyte_inputs(2 * m, "quad")[:7], dict(quad=True, rowloc=True),
              "rans_decode_v2", dict(quad=True), m))
-        out = []
+        # the compat step: sharded_fse_step's encode and decode of the
+        # graft entry's batch, a launch per shard
+        from finitestateentropy_tpu_torch.ops import bitio, fse_kernels as fk, fse_tables
+
+        S = dr.COMPAT_BLOCK
+        src, n, norm, tlog = (torch.from_numpy(a).to(DEV) for a in dr.compat_inputs(2 * m, S))
+        enc = (src, n, tlog, fse_tables.build_ctables(norm, tlog))
+        kw = dict(max_syms=S, out_bytes=S + (S >> 6) + 64)
+        words, csize = fk.fse_encode_batch_plain(*enc, **kw)
+        dec = (bitio.words_to_bytes(words), csize, n, tlog,
+               fse_tables.build_dtables(norm, tlog)[:3])
+        out = [dict(key="fse_encode", shards=m, run=partial(fk.fse_encode_batch, *enc, **kw),
+                    plain=lambda enc_out=(words, csize): enc_out),
+               dict(key="fse_decode", shards=m, run=partial(fk.fse_decode_batch, *dec, max_out=S),
+                    plain=partial(fk.fse_decode_batch_plain, *dec, max_out=S))]
         for (*arrays, steps, hcap, tlog), ef, entry, df, shards in trips:
             fc, mg, srcw, dtbl = (torch.from_numpy(a).to(DEV) for a in arrays)
             rowloc = ef.pop("rowloc", False)
@@ -1058,6 +1371,159 @@ def main() -> int:
     cli_piece = Piece("turbo", cli_data, GROUP)
     path_batches["cli_p80_8MiB"] = lambda: (encode_batches(cli_piece)
                                             + decode_batches(cli_piece, cli_blob, 0))
+    # the compat codecs: FSE and Huff0 frames (io/frame.py) through the
+    # device codecs (models/) at the CLI's 32 KiB blocks, one encode and one
+    # decode launch a batch; frames held against the host twin
+    from finitestateentropy_tpu_torch.io import frame as fio
+    from finitestateentropy_tpu_torch.models import (AutoTpuCodec, FseTpuCodec,
+                                                     HufTpuCodec, choose_codec,
+                                                     get_batch_codec)
+
+    def codec_of(name: str, **kw):
+        return {"fse": FseTpuCodec, "huf": HufTpuCodec}[name](**kw)
+
+    def counted(name: str, fn):
+        """fn() with the launch counts set to 0 before it and read after."""
+        rk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        e2e_s[f"{name}/0"] = [time.perf_counter() - t0]
+        launches[name] = {k: v for k, v in rk.launches.items() if v}
+        return out
+
+    # the 64 MiB paths; the device frames of the first COMPAT_MIB equal the
+    # host twin's, and the 64 MiB frames begin with their blocks
+    prefix = main_data[:COMPAT_MIB * GROUP]
+    compat_blobs, compat_twin, frames8 = {}, {}, {}
+    for codec in ("fse", "huf"):
+        name, items = f"{codec}_p80_64MiB", []
+        rk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = fio.compress_bytes(main_data, codec, COMPAT_BID,
+                                  codec_of(codec).compress_blocks)
+        secs = [time.perf_counter() - t0]
+        t0 = time.perf_counter()
+        back = fio.decompress_bytes(blob, recording(codec_of(codec).decompress_blocks, items))
+        e2e_s[f"{name}/0"] = secs + [time.perf_counter() - t0]
+        launches[name] = {k: v for k, v in rk.launches.items() if v}
+        require(back == main_data, f"{name}: the round trip")
+        compat_blobs[codec] = blob
+        frames8[codec] = fio.compress_bytes(prefix, codec, COMPAT_BID,
+                                            codec_of(codec).compress_blocks)
+        require(blob.startswith(frames8[codec][:-3]),   # all but the trailer
+                f"{name}: the first {COMPAT_MIB} MiB's blocks differ from their own frame's")
+        compat_twin[codec] = fio.compress_bytes(prefix, codec, COMPAT_BID)
+        require(frames8[codec] == compat_twin[codec],
+                f"{name}: the first {COMPAT_MIB} MiB's frame differs from the host twin's")
+        dec = main_data[:TWIN_DECODE_MIB * GROUP]
+        require(fio.decompress_bytes(fio.compress_bytes(
+            dec, codec, COMPAT_BID, codec_of(codec).compress_blocks)) == dec,
+            f"{name}: the host twin does not decode the device frame")
+        path_batches[name] = partial(
+            lambda c, it: (compat_encode_batches(codec_of(c), fio.split_blocks(
+                main_data, COMPAT_BLOCK)) + compat_decode_batches(codec_of(c), it)),
+            codec, items)
+
+    # the X2 decoder on the first 8 MiB's Huff0 frame (tables built on the host)
+    x2_codec, x2_items = HufTpuCodec(decoder="x2"), []
+    require(counted("huf_x2_p80_8MiB", lambda: fio.decompress_bytes(
+        frames8["huf"], recording(x2_codec.decompress_blocks, x2_items))) == prefix,
+        "huf_x2_p80_8MiB: the round trip")
+    path_batches["huf_x2_p80_8MiB"] = lambda: compat_decode_batches(x2_codec, x2_items)
+
+    # mixed blocks: Proba80, Proba14, random, one repeated byte, a ragged
+    # tail; FSE, Huff0 and the auto pick, each frame decoded by its magic
+    mixed_c = mixed_corpus(GROUP, COMPAT_MIB) + generate_proba(80)[:12345]
+    chosen = choose_codec(fio.split_blocks(mixed_c, COMPAT_BLOCK))
+    tags = (("fse", "fse"), ("huf", "huf"), (chosen, "auto"))   # (codec, frame)
+    mixed_items = {tag: [] for _c, tag in tags}
+
+    def mixed_run() -> dict:
+        frames = {}
+        for codec, tag in tags:
+            c = AutoTpuCodec() if tag == "auto" else codec_of(codec)
+            blob = fio.compress_bytes(mixed_c, codec, COMPAT_BID, c.compress_blocks)
+            magic = fio.CODEC_BY_MAGIC[int.from_bytes(blob[:4], "little")]
+            require(fio.decompress_bytes(blob, recording(get_batch_codec(magic)[1],
+                                                         mixed_items[tag])) == mixed_c,
+                    f"compat_mixed_8MiB: the {tag} round trip")
+            frames[tag] = blob
+        return frames
+    mixed_frames = counted("compat_mixed_8MiB", mixed_run)
+    mixed_twin = {c: fio.compress_bytes(mixed_c, c, COMPAT_BID) for c in ("fse", "huf")}
+    require(all(mixed_frames[tag] == mixed_twin[codec] for codec, tag in tags),
+            "compat_mixed_8MiB: a frame differs from the host twin's")
+    path_batches["compat_mixed_8MiB"] = lambda: [
+        b for codec, tag in tags for b in
+        compat_encode_batches(codec_of(codec), fio.split_blocks(mixed_c, COMPAT_BLOCK))
+        + compat_decode_batches(codec_of(codec), mixed_items[tag])]
+
+    # the CLI in a child process: -e, -h and --auto on the device codecs,
+    # each then -d; -z on the host twin (no device codec), then -d
+    cli_frames, cli_launches = {}, {}
+    with tempfile.TemporaryDirectory(dir=build_dir()) as tmp:
+        src = Path(tmp) / "p80"
+        src.write_bytes(prefix)
+        t0 = time.perf_counter()
+        for flags, tag in ((["-e"], "fse"), (["-h"], "huf"), (["--auto"], "auto"),
+                           (["-z", "--device", "host"], "zlibh")):
+            out, back = Path(tmp) / f"p80.{tag}.fse", Path(tmp) / f"{tag}.back"
+            for argv in ([*flags, "-f", str(src), str(out)],
+                         ["-d", "-f", str(out), str(back)]):
+                for k, v in run_cli(argv).items():
+                    cli_launches[k] = cli_launches.get(k, 0) + v
+            require(back.read_bytes() == prefix, f"cli_compat_p80_8MiB: the {tag} round trip")
+            cli_frames[tag] = out.read_bytes()
+        e2e_s["cli_compat_p80_8MiB/0"] = [time.perf_counter() - t0]
+    launches["cli_compat_p80_8MiB"] = cli_launches
+    cli_pick = choose_codec(fio.split_blocks(prefix, COMPAT_BLOCK))
+    cli_tags = (("fse", "fse"), ("huf", "huf"), (cli_pick, "auto"))
+    require(all(cli_frames[tag] == compat_twin[codec] for codec, tag in cli_tags),
+            "cli_compat_p80_8MiB: a frame differs from --device host's (the host twin's)")
+    require(fio.CODEC_BY_MAGIC[int.from_bytes(cli_frames["zlibh"][:4], "little")] == "zlibh",
+            "cli_compat_p80_8MiB: -z wrote no zlibh frame")
+    # the child's decode batches: the items of its frames, decoded here
+    cli_items = {tag: [] for _c, tag in cli_tags}
+    for codec, tag in cli_tags:
+        fio.decompress_bytes(cli_frames[tag], recording(codec_of(codec).decompress_blocks,
+                                                        cli_items[tag]))
+    path_batches["cli_compat_p80_8MiB"] = lambda: [
+        b for codec, tag in cli_tags for b in
+        compat_encode_batches(codec_of(codec), fio.split_blocks(prefix, COMPAT_BLOCK))
+        + compat_decode_batches(codec_of(codec), cli_items[tag])]
+
+    # the four sharded_* steps over the mesh of the visible GPUs (one card:
+    # one shard): the mesh frames equal the single-device frames
+    mesh_items = {"fse": [], "huf": []}
+
+    def mesh_run() -> dict:
+        frames = {}
+        for codec in ("fse", "huf"):
+            c = codec_of(codec, mesh=mesh)
+            frames[codec] = fio.compress_bytes(prefix, codec, COMPAT_BID, c.compress_blocks)
+            require(fio.decompress_bytes(frames[codec], recording(
+                c.decompress_blocks, mesh_items[codec])) == prefix,
+                f"mesh_compat_p80: the {codec} round trip")
+        return frames
+    mesh_frames = counted("mesh_compat_p80", mesh_run)
+    require(mesh_frames == frames8,
+            "mesh_compat_p80: the mesh frames differ from the single-device frames")
+    path_batches["mesh_compat_p80"] = lambda: [
+        b for codec in ("fse", "huf") for b in
+        compat_encode_batches(codec_of(codec), fio.split_blocks(prefix, COMPAT_BLOCK), m)
+        + compat_decode_batches(codec_of(codec), mesh_items[codec], m)]
+    print(json.dumps({"phase": "compat_frames_vs_twin",
+                      "twin_frames_equal_mib": {"fse_huf_64MiB_prefix": COMPAT_MIB,
+                                                "cli": COMPAT_MIB, "mixed": COMPAT_MIB},
+                      "twin_decoded_mib": TWIN_DECODE_MIB,
+                      "auto_pick": {"mixed": chosen, "cli_p80": cli_pick},
+                      "ratio": {c: len(main_data) / len(b) for c, b in compat_blobs.items()},
+                      "mixed_ratio": {c: len(mixed_c) / len(b) for c, b in mixed_frames.items()}}),
+          flush=True)
+
     print(json.dumps({"phase": "main_path", "launches": launches,
                       "seconds_compress_then_decompress": e2e_s}), flush=True)
     expect = {
@@ -1087,7 +1553,20 @@ def main() -> int:
                                          "rans_decode_w:byte": 1},
         "resident_mixed_16MiB": {"rans_encode2:byte": 1, "rans_decode_w:byte": 1},
         # default flags: 8 x 1 MiB of Proba80 go quad, as on the main path
-        "cli_p80_8MiB": {"rans_encode2:quad": 1, "rans_decode_w:quad": 1}}
+        "cli_p80_8MiB": {"rans_encode2:quad": 1, "rans_decode_w:quad": 1},
+        # the compat codecs: one encode and one decode launch a batch
+        "fse_p80_64MiB": {"fse_encode": 1, "fse_decode": 1},
+        "huf_p80_64MiB": {"huf_encode_4x": 1, "huf_decode_4x:x1": 1},
+        "huf_x2_p80_8MiB": {"huf_decode_4x:x2": 1},
+        "compat_mixed_8MiB": {
+            "fse_encode": 1 + (chosen == "fse"), "fse_decode": 1 + (chosen == "fse"),
+            "huf_encode_4x": 1 + (chosen == "huf"), "huf_decode_4x:x1": 1 + (chosen == "huf")},
+        "cli_compat_p80_8MiB": {
+            "fse_encode": 1 + (cli_pick == "fse"), "fse_decode": 1 + (cli_pick == "fse"),
+            "huf_encode_4x": 1 + (cli_pick == "huf"),
+            "huf_decode_4x:x1": 1 + (cli_pick == "huf")},
+        "mesh_compat_p80": {"fse_encode": m, "fse_decode": m, "huf_encode_4x": m,
+                            "huf_decode_4x:x1": m}}
     for name, want in expect.items():
         require(launches[name] == want, f"{name} routes: {launches[name]}")
     for name, need in (("default_mixed", ("pair", "quad", "byte")),
@@ -1182,12 +1661,19 @@ def main() -> int:
         return out
 
     shapes, path_errs = {}, {}
+    plain_of = {}       # compat ident -> the plain version's outputs and ms
     for name in [*paths, *path_batches]:
         perr, counts = {}, {}
         for b in batches_of(name):
             key = b["key"]
-            got, want = b["run"](), b["plain"]()
-            if not key.startswith("rans_encode"):
+            if "ident" in b:
+                got = b["run"]()
+                if b["ident"] not in plain_of:
+                    plain_of[b["ident"]] = timed_call(b["plain"])
+                want, b["plain_ms"] = plain_of[b["ident"]]
+            else:
+                got, want = b["run"](), b["plain"]()
+            if not is_encode(key):
                 require(not want[1].any(), f"{name}: plain decode flags a clean group")
             perr[key] = max(perr.get(key, 0), max_abs_err(got, want))
             counts[key] = counts.get(key, 0) + b.get("shards", 1)
@@ -1200,6 +1686,7 @@ def main() -> int:
         path_errs[name] = perr
         for key, v in perr.items():
             errs[key] = max(errs[key], v)
+    del plain_of
     # entry-modes no path launches (the JAX package runs them only in its
     # tests) are timed at the shapes of the path named
     timing_only = {
@@ -1261,21 +1748,47 @@ def main() -> int:
     print(json.dumps({"phase": "host_breakdown", "gpu": gpu,
                       "path": "default_p80_64MiB", "seconds": st}), flush=True)
 
+    # the compat codecs end to end on the 64 MiB paths: compress /
+    # decompress through the frame layer whole (the blocks, the batch
+    # codec, the XXH32 checksum), median of 3 runs (the path's, one more,
+    # and one with the codecs' stage seconds on, whose device stages end in
+    # a sync); "rest" is the frame layer around the codec, checksum included
+    from finitestateentropy_tpu_torch.models import fse_codec as fse_codec_mod
+    from finitestateentropy_tpu_torch.utils.xxhash32 import xxh32
+
+    compat_e2e = {"gpu": gpu, "input_bytes": len(main_data)}
+    for codec in ("fse", "huf"):
+        first = e2e_s[f"{codec}_p80_64MiB/0"]
+        comp_s, dec_s, split = [first[0]], [first[1]], {}
+        c = codec_of(codec)
+        for staged in (False, True):
+            fse_codec_mod.stage_seconds = {} if staged else None
+            t0 = time.perf_counter()
+            b2 = fio.compress_bytes(main_data, codec, COMPAT_BID, c.compress_blocks)
+            comp_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            fio.decompress_bytes(b2, c.decompress_blocks)
+            dec_s.append(time.perf_counter() - t0)
+        split, fse_codec_mod.stage_seconds = fse_codec_mod.stage_seconds, None
+        for side, total in (("c", comp_s[-1]), ("d", dec_s[-1])):
+            split[f"{side}_rest"] = total - sum(v for k, v in split.items()
+                                                if k.startswith(side + "_"))
+            split[f"{side}_total"] = total
+        compat_e2e[codec] = {
+            "compress_s": comp_s, "decompress_s": dec_s,
+            "compress_GBps_median": len(main_data) / sorted(comp_s)[1] / GB,
+            "decompress_GBps_median": len(main_data) / sorted(dec_s)[1] / GB,
+            "stage_seconds": split}
+    t0 = time.perf_counter()
+    xxh32(main_data, 0)
+    compat_e2e["checksum_s"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "compat_end_to_end", **compat_e2e}), flush=True)
+
     # the resident pipeline's rates: CUDA events around the whole call,
     # median of 3 after a warm-up; and where a compress call's time goes
-    def event_ms(fn) -> float:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end)
-
     def median3(fn) -> tuple[float, list[float]]:
         fn()
-        ms = [event_ms(fn) for _ in range(3)]
+        ms = [timed_call(fn)[1] for _ in range(3)]
         return sorted(ms)[1], ms
 
     xp64 = x64.view(MAIN_MIB, GROUP)
@@ -1351,7 +1864,10 @@ def main() -> int:
     # that hold it (their former chain, "flat_1024": a table read, the
     # 1024-thread barrier and an L1 stream read, kept beside it)
     rows_chain = 2 * step_ns["smem"] + step_ns["mad_ballot"]
-    chain = {"encode": step_ns["encode_step"], "rows": rows_chain,
+    # the compat chains: one dependent table lookup a step, at best from
+    # shared memory (the Huff0 encode has no chain)
+    chain = {"lookup": step_ns["smem"], "none": 0.0,
+             "encode": step_ns["encode_step"], "rows": rows_chain,
              "flat": rows_chain + step_ns["barrier_512"],
              "v0": rows_chain + step_ns["barrier_256"],
              "flat_1024": step_ns["smem"] + step_ns["barrier_1024"] + step_ns["global_l1"]}
@@ -1363,7 +1879,9 @@ def main() -> int:
         path, b = shapes[key]
         ms = cuda_ms(b["kernel"], 20)
         dev_ms = device_ms(b["kernel"], KERNEL_FN[source_of(key).rsplit("/", 1)[1]], 5)
-        plain_ms = cuda_ms(b["plain"], 1)
+        # a compat batch's plain version at the path's shapes runs for
+        # seconds (a Python step a symbol pair): its one call in step 5
+        plain_ms = b["plain_ms"] if "plain_ms" in b else cuda_ms(b["plain"], 1)
         nbytes = b["nbytes"](b["kernel"]())
         old = ({"chain_bound_ms_1024": b["steps"] * chain["flat_1024"] * 1e-6}
                if b["chain"] in ("flat", "v0") else {})
@@ -1379,7 +1897,8 @@ def main() -> int:
                      "device_ms_by_kernel": dev_ms})
     print(json.dumps({"phase": "kernel_times", "gpu": gpu,
                       "clocks_sm_power_draw": nvidia_smi("clocks.sm,clocks.max.sm,power.draw"),
-                      "library": "no single PyTorch call computes rANS: library_ms is null"}),
+                      "library": "no single PyTorch call computes rANS, tANS or "
+                                 "Huffman coding: library_ms is null"}),
           flush=True)
 
     print(f"gpu: {gpu}")

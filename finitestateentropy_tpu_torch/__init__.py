@@ -1,4 +1,4 @@
-"""finitestateentropy_tpu_torch — the TurboRANS codec on PyTorch and CUDA.
+"""finitestateentropy_tpu_torch — the TurboRANS and compat codecs on PyTorch and CUDA.
 
 The port of ``finitestateentropy_tpu`` to an NVIDIA Hopper GPU.  Plain
 tensor code is PyTorch; every coder kernel is CUDA C++ written for
@@ -12,8 +12,15 @@ equal to the originals.
 
 Package layout (each module's counterpart has the same path in the JAX
 package):
-  refimpl/   hist, normalization and NCount (reference-exact host code).
-  utils/     debug logging and the probaGenerator twin.
+  refimpl/   hist, normalization, NCount and the FSE / Huff0 / zlibh host
+             twins (reference-exact host code).
+  utils/     debug logging, XXH32 and the probaGenerator twin.
+  ops/       device ops: the resident pipeline's (hist, norm, rANS tables)
+             and the compat codecs' (bit I/O, FSE tables, the FSE and Huff0
+             kernel wrappers).
+  models/    the compat codecs (FseTpuCodec, HufTpuCodec, AutoTpuCodec).
+  io/        the .fse frame layer and resumable jobs.
+  parallel/  the device mesh and the sharded steps.
   turbo/     the TurboRANS wires (rans.py and format.py: byte; pair.py:
              pair; quad.py: quad; rans16.py: the U16 codec), the table packers
              (tables.py), the kernel wrappers (rans_kernels.py), the

@@ -1,17 +1,24 @@
 """Command-line interface: the JAX package's CLI (flag-compatible with the
-reference `fse` CLI, programs/commandline.c:94-109), with its TurboRANS
-half on the GPU.
+reference `fse` CLI, programs/commandline.c:94-109) on the GPU.
 
+  python -m finitestateentropy_tpu_torch.cli [-e|-h|-z|--auto] [-d] [-t]
+      [-B#] [-f] [-v|-q] [--mesh N] [--device host|cuda] input [output]
   python -m finitestateentropy_tpu_torch.cli -T [-d] [-t] [-f] [-M#] [-G#]
       [--ratio | --sect rows|totals|none] [--pair N] [--quad N]
       [--mesh N] [--windows N] [--device host|cuda] input [output]
   ('-' reads stdin / writes stdout, as in the reference)
 
-`-T` runs the port's entry points on CUDA; with no CUDA device it exits 1
-unless `--device host` asks for the CPU, which runs the native host codec
-when it is built (native.py) and otherwise the entry points on the CPU.
-The compat codecs (-e / -h / -z without -T, --auto) and bench mode (-b)
-are not ported yet and exit 1.
+The compat codecs (-e FSE, the default; -h Huff0; --auto picks one from
+block histograms) write and read the reference's .fse frames through the
+device codecs (models/) on CUDA, built at the frame's block size; -d / -t
+decode a frame by its magic.  -T runs the TurboRANS entry points on CUDA.
+Without a CUDA device both exit 1 unless `--device host` asks for the
+CPU: the host twins for the compat codecs (the JAX CLI's default), the
+native host codec for -T when it is built (native.py) and otherwise the
+entry points on the CPU.  -z (zlib's Huffman coder) has no device codec
+in either package: it compresses only with --device host, and zlibh
+frames always decode through the twin.  Bench mode (-b) is not ported
+yet and exits 1.
 """
 from __future__ import annotations
 
@@ -19,7 +26,17 @@ import argparse
 import sys
 import time
 
+from .config import FIO_BLOCKSIZEID_DEFAULT
+
+FSE_EXTENSION = ".fse"
 TURBO_EXTENSION = ".tfse"
+
+
+def _block_size_to_id(bsize: int) -> int:
+    bid = 0
+    while (1 << (10 + bid)) < bsize and bid < 6:
+        bid += 1
+    return bid
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,9 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-G", dest="group", type=str, default="1M",
                    help="turbo group size (K/M suffix)")
     p.add_argument("--device", choices=["host", "cuda"], default=None,
-                   help="turbo compute path: cuda (the default when -T is "
-                        "given) or host (the native codec, else the entry "
-                        "points on the CPU)")
+                   help="compute path: cuda (the default) or host (the "
+                        "host twins; with -T the native codec, else the "
+                        "entry points on the CPU)")
     p.add_argument("--mesh", type=int, default=0, help="data-parallel device count")
     p.add_argument("--windows", type=int, default=0,
                    help="turbo decode entry: N > 1 the windowed entry at "
@@ -150,11 +167,91 @@ def main(argv=None) -> int:
     if not args.input:
         print("missing input file", file=sys.stderr)
         return 1
-    if not args.turbo:
-        print("the compat codecs (-e, -h, -z, --auto) are not yet ported; "
-              "use -T for TurboRANS", file=sys.stderr)
+    if args.turbo:
+        return _turbo_main(args, verbosity)
+    return _compat_main(args, verbosity)
+
+
+def _compat_main(args, verbosity: int) -> int:
+    """The .fse frame path (JAX cli.py:141-248): the device codecs on CUDA,
+    the host twins with --device host."""
+    decode = args.decode or args.test or (args.input.endswith(FSE_EXTENSION)
+                                          and not args.codec)
+    host = args.device == "host"
+    if not decode and args.codec == "zlibh" and not host:
+        print("Error: -z (zlibh) has no device codec; pass --device host to "
+              "compress with the host twin", file=sys.stderr)
         return 1
-    return _turbo_main(args, verbosity)
+    if not host:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("Error: the compat codecs run on CUDA and no CUDA device is "
+                  "available; pass --device host to run the host twins",
+                  file=sys.stderr)
+            return 1
+
+    from .errors import FSEError
+    from .io import frame as fio
+
+    def device_codec(codec: str, bid: int):
+        """(compressor, decompressor) of the device codec at the frame's
+        block size; (None, None), the host twin, with --device host."""
+        if host:
+            return None, None
+        from .models import get_batch_codec
+
+        return get_batch_codec(codec, mesh=args.mesh, block_size=1 << (10 + bid))
+
+    codec = args.codec or "fse"
+    t0 = time.perf_counter()
+    try:
+        if decode:
+            out = _default_out(args, True, FSE_EXTENSION)
+            if not args.test and _refuse_overwrite(out, args.force):
+                return 1
+            frame = _read_input(args.input)
+            # the decode side's codec comes from the frame magic
+            # (fileio.c:484-500); zlibh frames decode through the twin
+            codec_in = fio.CODEC_BY_MAGIC.get(int.from_bytes(frame[:4], "little"))
+            dec = None
+            if codec_in in ("fse", "huf") and len(frame) > 4 \
+                    and frame[4] <= fio.FIO_MAX_BLOCKSIZE_ID:
+                dec = device_codec(codec_in, frame[4])[1]
+            data = fio.decompress_bytes(frame, dec)
+            if args.test:
+                if verbosity >= 2:
+                    print(f"OK: decoded {len(data)} bytes", file=sys.stderr)
+            else:
+                _write_output(out, data)
+                if verbosity >= 2:
+                    print(f"Decoded {len(data)} bytes", file=sys.stderr)
+        else:
+            out = _default_out(args, False, FSE_EXTENSION)
+            if _refuse_overwrite(out, args.force):
+                return 1
+            bid = (_block_size_to_id(_parse_bsize(args.bsize)) if args.bsize
+                   else FIO_BLOCKSIZEID_DEFAULT)
+            data = _read_input(args.input)
+            if args.auto and not args.codec:
+                from .models import choose_codec
+
+                codec = choose_codec(fio.split_blocks(data, 1 << (10 + bid)))
+                if verbosity >= 2:
+                    print(f"auto: selected {codec}", file=sys.stderr)
+            comp = None if codec == "zlibh" else device_codec(codec, bid)[0]
+            frame = fio.compress_bytes(data, codec, bid, comp)
+            _write_output(out, frame)
+            if verbosity >= 2:
+                ratio = 100.0 * len(frame) / len(data) if data else 0.0
+                print(f"Compressed {len(data)} bytes into {len(frame)} bytes "
+                      f"==> {ratio:.2f}%", file=sys.stderr)
+    except (FSEError, OSError) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    if verbosity >= 3:
+        print(f"elapsed: {time.perf_counter() - t0:.3f}s", file=sys.stderr)
+    return 0
 
 
 def _turbo_main(args, verbosity: int) -> int:

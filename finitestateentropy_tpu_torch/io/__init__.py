@@ -1,5 +1,3 @@
-"""Host-side file jobs: resumable TurboRANS compression (jobs.py).
-
-The JAX package's io/ also holds the compat frame layer (frame.py); the
-port's copy of it comes with the compat codecs.
+"""Host-side I/O: the compat codecs' frame layer (frame.py, the reference's
+.fse frames) and resumable TurboRANS compression (jobs.py).
 """

@@ -2,7 +2,9 @@
 
 The port's copy of the JAX package's native.py: it loads the same library,
 native/libturbofse.so, and builds it on demand with native/build.sh and the
-system compiler; `available()` reports whether it could be loaded.  The
+system compiler, under a file lock and into a temporary directory whose
+library then replaces the old name at once (so no process loads a
+half-written file); `available()` reports whether it could be loaded.  The
 native path is the CLI's host codec (`-T --device host`) and a fast oracle
 for the device kernels: its encoder emits ratio-mode (v1) groups
 byte-identical to `rans_compress(..., steptots=False)` and speed-mode
@@ -12,13 +14,43 @@ byte, pair and quad frame.
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import os
+import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 _LIB_DIR = Path(__file__).resolve().parent.parent / "native"
 _LIB = _LIB_DIR / "libturbofse.so"
+_LOCK = _LIB_DIR / "libturbofse.lock"
+_VERSION = 4
 _lib = None
 _tried = False
+
+
+def _build() -> None:
+    """Build the library into a temporary directory and move it into place
+    with os.replace, so no process ever loads a half-written file.  The
+    caller holds the build lock."""
+    tmp = Path(tempfile.mkdtemp(prefix=".build-", dir=_LIB_DIR))
+    try:
+        for name in ("build.sh", "turbofse.cc"):
+            shutil.copy2(_LIB_DIR / name, tmp / name)
+        subprocess.run(["sh", str(tmp / "build.sh")], check=True,
+                       capture_output=True)
+        os.replace(tmp / "libturbofse.so", _LIB)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _open():
+    """The loaded library at its current version, or None."""
+    try:
+        lib = ctypes.CDLL(str(_LIB))
+    except OSError:
+        return None
+    return lib if getattr(lib, "tfse_version", lambda: 0)() >= _VERSION else None
 
 
 def _load():
@@ -26,28 +58,23 @@ def _load():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not _LIB.exists():
+    lib = _open() if _LIB.exists() else None
+    if lib is None:
+        # missing, stale or half-written by a build that writes in place:
+        # build under the lock (one process builds, the others wait and load)
         try:
-            subprocess.run(["sh", str(_LIB_DIR / "build.sh")], check=True,
-                           capture_output=True)
-        except Exception:
-            return None
-    try:
-        lib = ctypes.CDLL(str(_LIB))
-    except OSError:
+            with open(_LOCK, "a") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                lib = _open() if _LIB.exists() else None
+                if lib is None:
+                    _build()
+                    lib = _open()
+        except (OSError, subprocess.CalledProcessError):
+            lib = None
+    if lib is None:
         from .utils.debug import debuglog
         debuglog(2, "native turbofse library unavailable; python twin fallback")
         return None
-    if getattr(lib, "tfse_version", lambda: 0)() < 4:
-        # stale build from an older checkout: rebuild once and reload
-        try:
-            subprocess.run(["sh", str(_LIB_DIR / "build.sh")], check=True,
-                           capture_output=True)
-            lib = ctypes.CDLL(str(_LIB))
-        except Exception:
-            return None
-        if lib.tfse_version() < 4:
-            return None
     lib.tfse_rans_compress_group.restype = ctypes.c_int64
     lib.tfse_rans_compress_group.argtypes = [
         ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p, ctypes.c_uint64]

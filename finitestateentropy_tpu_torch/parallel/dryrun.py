@@ -1,13 +1,14 @@
-"""The multi-device dry run: every sharded TurboRANS step over a mesh.
+"""The multi-device dry run: every sharded codec step over a mesh.
 
-The port of the turbo half of the JAX package's
-``__graft_entry__.dryrun_multichip`` (``_turbo_dryrun`` and the dry runs it
-calls): the ratio and speed round trips (flat encode placement), the
-row-local encode with the windowed-decoder entry, the U16 wire, the pair
-and quad wires, and a mixed RLE / raw / coded buffer through the entry
-points with ``mesh`` set, whose frames must equal the single-device ones.
-The compat half (``parallel/dp.py``, ``sharded_fse_step``) is not ported
-yet.  Shapes are small: groups of 8-128 KiB, two per device.
+The port of the JAX package's ``__graft_entry__.dryrun_multichip``: its
+compat step (``parallel/dp.py:sharded_fse_step`` on two 1 KiB blocks a
+device: table build, encode, decode and verify, with the size reduction),
+then the turbo half (``_turbo_dryrun`` and the dry runs it calls): the
+ratio and speed round trips (flat encode placement), the row-local encode
+with the windowed-decoder entry, the U16 wire, the pair and quad wires,
+and a mixed RLE / raw / coded buffer through the entry points with
+``mesh`` set, whose frames must equal the single-device ones.  Shapes are
+small: groups of 8-128 KiB, two per device.
 
     python -m finitestateentropy_tpu_torch.parallel.dryrun [n_devices] [cpu]
 """
@@ -17,7 +18,7 @@ import sys
 
 import numpy as np
 
-from ..refimpl.norm import fse_normalize_count
+from ..refimpl.norm import fse_normalize_count, fse_optimal_table_log
 from ..turbo.api import (_hrows_cap, _prep_group, turbo_compress_device,
                          turbo_decompress_device)
 from ..turbo.format import TURBO_STEP_SYMS, _pad_n
@@ -28,10 +29,45 @@ from ..turbo.tables import (pack_pair_dtable, pack_quad_dtable,
                             pack_rans16_ctables, pack_rans16_dtable,
                             pack_rans_ctables, pack_rans_dtable)
 from ..utils import generate_proba
+from .dp import sharded_fse_step
 from .mesh import Mesh, device_count, make_mesh
 from .turbo_dp import (sharded_turbo16_roundtrip, sharded_turbo_pair_roundtrip,
                        sharded_turbo_quad_roundtrip, sharded_turbo_roundtrip,
                        sharded_turbo_roundtrip_v2, sharded_turbo_roundtrip_w)
+
+
+COMPAT_BLOCK = 1024
+
+
+def compat_inputs(n_blocks: int, block_size: int = COMPAT_BLOCK):
+    """(src[B,S], n[B], norm[B,256], tlog[B]) of the graft entry's example
+    batch (__graft_entry__._example_batch): blocks of 16 symbols drawn from
+    a dirichlet(0.4) distribution each, their normalized counts."""
+    rng = np.random.default_rng(0)
+    src = np.zeros((n_blocks, block_size), dtype=np.uint8)
+    norms = np.zeros((n_blocks, 256), dtype=np.int32)
+    tlogs = np.zeros(n_blocks, dtype=np.int32)
+    ns = np.full(n_blocks, block_size, dtype=np.int32)
+    for b in range(n_blocks):
+        probs = rng.dirichlet(np.full(16, 0.4))
+        blk = rng.choice(16, size=block_size, p=probs).astype(np.uint8)
+        src[b] = blk
+        count = np.bincount(blk, minlength=256)
+        max_sv = int(blk.max())
+        tlog = fse_optimal_table_log(11, block_size, max_sv)
+        norm, tlog = fse_normalize_count(tlog, count[: max_sv + 1], block_size, max_sv)
+        norms[b, : len(norm)] = norm
+        tlogs[b] = tlog
+    return src, ns, norms, tlogs
+
+
+def _compat_dryrun(mesh: Mesh, n: int, log) -> None:
+    """The graft entry's compat step: sharded_fse_step on two blocks a
+    device."""
+    ok, total = sharded_fse_step(mesh, block_size=COMPAT_BLOCK)(
+        *compat_inputs(2 * n))
+    assert int(ok) == 1, "multi-device FSE round-trip failed verification"
+    log(f"dryrun_multichip({n}): compat ok, total = {int(total)} bytes")
 
 
 def byte_inputs(data: bytes, G: int, gsz: int):
@@ -197,12 +233,13 @@ def _mixed_frame_dryrun(n: int, device, log) -> None:
 
 
 def dryrun_multichip(n_devices: int, device=None, log=print) -> None:
-    """Every sharded TurboRANS step on a mesh of n_devices devices (device:
+    """Every sharded codec step on a mesh of n_devices devices (device:
     None for the CUDA devices, "cpu" for a CPU mesh); raises
     AssertionError when a round trip fails."""
     avail = device_count(device)
     assert avail >= n_devices, f"need {n_devices} devices, have {avail}"
     mesh = make_mesh(n_devices, device=device)
+    _compat_dryrun(mesh, n_devices, log)
     _turbo_dryrun(mesh, n_devices, log)
     _turbo_w_dryrun(mesh, n_devices, log)
     _turbo16_dryrun(mesh, n_devices, log)

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # chain_probe is a latency microbenchmark (chip_smoke.py), not a codec kernel
 SOURCES = ("rans_encode", "rans_decode", "rans_decode_flat", "turbo_fse_decode",
-           "chain_probe")
+           "fse_encode", "fse_decode", "huf_encode", "huf_decode", "chain_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

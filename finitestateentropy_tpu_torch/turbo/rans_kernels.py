@@ -50,7 +50,8 @@ PyTorch version beside it; otherwise, on CUDA tensors, it launches the
 kernel, or raises.  ``launches`` counts kernel
 launches per entry and mode ("rans_encode2:quad", "rans_encode2_flat:byte"
 for the flat placement, "rans_decode_w:totals"; turbo/kernels.py adds
-"turbo_fse_decode:v0"); nothing else adds to it.  LAUNCH_MODES lists the
+"turbo_fse_decode:v0", and the compat codecs' wrappers in ops/ the
+COMPAT_KEYS); nothing else adds to it.  LAUNCH_MODES lists the
 modes the package's paths launch; the other combinations the JAX kernels
 accept (the flat placement on the pair and quad wires, the row-local one
 with u16 tables, the v1 encode of pair ids) launch the same kernel and
@@ -83,7 +84,11 @@ LAUNCH_MODES = {
     "rans_decode_w": ("byte", "pair", "quad", "totals", "u16", "u16x"),
     "rans_decode": ("byte", "pair", "u16", "u16x"),
 }
+# the compat codecs' kernels (ops/fse_kernels.py, ops/huf_kernels.py)
+COMPAT_KEYS = ("fse_encode", "fse_decode", "huf_encode_4x", "huf_decode_4x:x1",
+               "huf_decode_4x:x2")
 launches = {f"{e}:{m}": 0 for e, ms in LAUNCH_MODES.items() for m in ms}
+launches.update(dict.fromkeys(COMPAT_KEYS, 0))
 _MODE_ID = {"byte": 0, "pair": 1, "quad": 2, "u16": 3, "u16x": 4}  # csrc/rans_step.cuh
 
 _M32 = 0xFFFFFFFF
@@ -99,6 +104,14 @@ _SIGS = {   # C entry -> (library, argument types)
         [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "turbo_fse_decode_launch": (        # turbo/kernels.py
         "turbo_fse_decode", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P]),
+    "fse_encode_launch": (              # ops/fse_kernels.py
+        "fse_encode", [_P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _P]),
+    "fse_decode_launch": (
+        "fse_decode", [_P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P]),
+    "huf_encode_launch": (              # ops/huf_kernels.py
+        "huf_encode", [_P, _I, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P]),
+    "huf_decode_launch": (
+        "huf_decode", [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P]),
 }
 
 

@@ -1,7 +1,9 @@
 """XXH32 — needed for the frame checksum (reference programs/fileio.c:129,410-418).
 
-Vectorized numpy implementation of the public XXH32 algorithm; streaming state
-not needed (frames are hashed in one shot over the original data).
+The public XXH32 algorithm over a numpy view of the input; streaming state
+not needed (frames are hashed in one shot over the original data).  The
+port's copy runs the stripe loop on plain Python ints (same results as the
+JAX package's numpy-scalar loop, several times faster).
 """
 from __future__ import annotations
 
@@ -25,30 +27,22 @@ def xxh32(data: bytes | np.ndarray, seed: int = 0) -> int:
     i = 0
     if n >= 16:
         nlanes = n // 16
-        lanes = (
-            buf[: nlanes * 16]
-            .view("<u4")
-            .reshape(nlanes, 4)
-            .astype(np.uint64)
-        )
+        lanes = buf[: nlanes * 16].view("<u4").reshape(nlanes, 4)
         v = [
             (seed + _P1 + _P2) & _M32,
             (seed + _P2) & _M32,
             seed & _M32,
             (seed - _P1) & _M32,
         ]
-        # per-lane sequential rounds (vector over the 4 lanes is what xxh does;
-        # the stripe loop is inherently serial, keep it in numpy scalars)
+        # per-lane sequential rounds (vector over the 4 lanes is what xxh
+        # does; the stripe loop is inherently serial): plain Python ints over
+        # each lane's column, several times faster than numpy scalars
         for k in range(4):
-            acc = np.uint64(v[k])
-            col = lanes[:, k]
-            p2 = np.uint64(_P2)
-            p1 = np.uint64(_P1)
-            for x in col:
-                acc = (acc + x * p2) & np.uint64(_M32)
-                a = int(acc)
-                acc = np.uint64((_rotl(a, 13) * _P1) & _M32)
-            v[k] = int(acc)
+            acc = v[k]
+            for x in lanes[:, k].tolist():
+                acc = (acc + x * _P2) & _M32
+                acc = (((acc << 13) | (acc >> 19)) * _P1) & _M32
+            v[k] = acc
         h = (_rotl(v[0], 1) + _rotl(v[1], 7) + _rotl(v[2], 12) + _rotl(v[3], 18)) & _M32
         i = nlanes * 16
     else:

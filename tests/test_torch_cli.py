@@ -4,10 +4,16 @@ resumable job layer (io/jobs.py).
 `-T --device host` writes the same .tfse bytes as the JAX package's CLI
 `-T` with the same flags on a machine without an accelerator (both run
 the native host codec when it is built), and each CLI decodes the
-other's files.  Without CUDA and without `--device host`, `-T` exits 1.
+other's files.  The compat half (`-e`, `-h`, `--auto`, `-z`, `-d`) with
+`--device host` writes the .fse bytes the JAX CLI writes with its
+default `--device host` (the host twins), and the device path (here the
+codecs on the CPU, CUDA faked) writes the same frames at the frame's
+block size.  Without CUDA and without `--device host`, `-T` and the
+compat codecs exit 1.
 """
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -79,17 +85,104 @@ def test_cli_turbo_needs_cuda_or_device_host(tmp_path, monkeypatch, capsys):
     assert not (tmp_path / "in.bin.tfse").exists()
 
 
-def test_cli_unported_modes_and_argument_checks(tmp_path, capsys):
+def test_cli_unported_modes_and_argument_checks(tmp_path, capsys, monkeypatch):
+    """-b is not ported; the compat codecs need CUDA or --device host; -z
+    has no device codec."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     src = _src(tmp_path, generate_proba(80)[:5000])
-    for argv in (["-e", src], ["-h", src], ["-z", src], [src], ["--auto", src]):
+    for argv in (["-e", src], ["-h", src], [src], ["--auto", src],
+                 ["-d", src], ["-e", "--device", "cuda", src]):
         assert main(argv) == 1
-        assert "not yet ported" in capsys.readouterr().err
+        assert "--device host" in capsys.readouterr().err
+    assert main(["-z", src]) == 1
+    assert "-z (zlibh) has no device codec" in capsys.readouterr().err
+    assert not (tmp_path / "in.bin.fse").exists()
     assert main(["-b", src]) == 1
     assert "not yet ported" in capsys.readouterr().err
     assert main(["-T", "--device", "host"]) == 1          # no input
     assert main(["-T", "--device", "host", src, "a", "b"]) == 1   # file list
     with pytest.raises(SystemExit):
         main(["-T", "--device", "tpu", src])               # not a choice here
+
+
+COMPAT = {"fse": ["-e"], "huf": ["-h"], "auto": ["--auto"], "zlibh": ["-z"],
+          "fse_64k": ["-e", "-B", "64K"], "huf_4k": ["-h", "-B", "4K"]}
+
+
+def _compat_data() -> bytes:
+    """Proba80 and Proba14 with a run of one byte and a ragged tail."""
+    return (generate_proba(80)[:40000] + b"\x33" * 20000
+            + generate_proba(14)[:30000] + generate_proba(80)[:555])
+
+
+@pytest.mark.parametrize("flags", list(COMPAT))
+def test_cli_compat_host_frames_equal_jax_cli(tmp_path, flags):
+    """--device host writes the JAX CLI's bytes (its default device is the
+    host); each CLI decodes the other's file, by the frame's magic."""
+    from finitestateentropy_tpu.cli import main as j_main
+
+    data = _compat_data()
+    src = _src(tmp_path, data)
+    ours, theirs = str(tmp_path / "p.fse"), str(tmp_path / "j.fse")
+    assert main([*COMPAT[flags], "--device", "host", "-f", src, ours]) == 0
+    assert j_main([*COMPAT[flags], "-f", src, theirs]) == 0
+    blob = (tmp_path / "p.fse").read_bytes()
+    assert blob == (tmp_path / "j.fse").read_bytes()
+    assert main(["-d", "--device", "host", "-f", theirs, str(tmp_path / "p.out")]) == 0
+    assert j_main(["-d", "-f", ours, str(tmp_path / "j.out")]) == 0
+    assert (tmp_path / "p.out").read_bytes() == data
+    assert (tmp_path / "j.out").read_bytes() == data
+    assert main(["-t", "--device", "host", ours]) == 0
+
+
+@pytest.fixture
+def cpu_codecs(monkeypatch):
+    """The CLI's device path on the CPU: CUDA faked present, the codecs
+    built with device="cpu" (their plain versions); records each codec's
+    block size."""
+    import finitestateentropy_tpu_torch.models as models
+
+    built = []
+    real = models.get_batch_codec
+
+    def on_cpu(codec, mesh=0, block_size=32768, device=None):
+        built.append((codec, block_size))
+        return real(codec, mesh, block_size, device="cpu")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(models, "get_batch_codec", on_cpu)
+    return built
+
+
+@pytest.mark.parametrize("flags", ["fse", "huf", "auto"])
+def test_cli_compat_device_path_writes_twin_frames(tmp_path, cpu_codecs, flags):
+    """-e / -h / --auto through the device codecs at 8 KiB blocks write the
+    host twin's frames; -d decodes them by the magic through the device
+    codec named there (at the frame's block size)."""
+    data = _compat_data()[:30000]
+    src = _src(tmp_path, data)
+    dst, host = str(tmp_path / "d.fse"), str(tmp_path / "h.fse")
+    argv = [*COMPAT[flags], "-B", "8K", "-f"]
+    assert main([*argv, src, dst]) == 0
+    assert main([*argv, "--device", "host", src, host]) == 0
+    assert (tmp_path / "d.fse").read_bytes() == (tmp_path / "h.fse").read_bytes()
+    assert main(["-d", "-f", dst, str(tmp_path / "back")]) == 0
+    assert (tmp_path / "back").read_bytes() == data
+    want = "huf" if flags == "huf" else "fse"
+    assert cpu_codecs[-1] == (want, 8192)
+    assert all(bs == 8192 for _c, bs in cpu_codecs)
+
+
+def test_cli_compat_zlibh_frames_decode_through_the_twin(tmp_path, cpu_codecs):
+    """zlibh frames decode through the twin on the device path too; -z
+    still needs --device host to compress."""
+    data = _compat_data()[:20000]
+    src = _src(tmp_path, data)
+    assert main(["-z", "-f", src]) == 1
+    assert main(["-z", "--device", "host", "-f", src]) == 0
+    assert main(["-d", "-f", src + ".fse", str(tmp_path / "back")]) == 0
+    assert (tmp_path / "back").read_bytes() == data
+    assert cpu_codecs == []
 
 
 def test_cli_refuses_overwrite_without_force(tmp_path, have_native):
@@ -112,6 +205,65 @@ def test_cli_stdin_stdout_pipes(have_native):
     r2 = subprocess.run(cmd + ["-d", "-", "-"], input=r.stdout,
                         capture_output=True, check=True, timeout=120)
     assert r2.stdout == data
+
+
+# ---------------------------------------------------------------------------
+# native.py: the build never leaves a half-written library in place
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def native_dir(tmp_path, monkeypatch):
+    """native.py pointed at a scratch copy of the native directory, with the
+    loader's cached state reset."""
+    for name in ("build.sh", "turbofse.cc"):
+        (tmp_path / name).write_text("stub")
+    monkeypatch.setattr(native, "_LIB_DIR", tmp_path)
+    monkeypatch.setattr(native, "_LIB", tmp_path / "libturbofse.so")
+    monkeypatch.setattr(native, "_LOCK", tmp_path / "libturbofse.lock")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    return tmp_path
+
+
+def test_native_build_replaces_the_library_whole(native_dir, monkeypatch):
+    """The build runs in a temporary directory and moves the finished file
+    into place; a failed build leaves the old file and no temporary."""
+    def build(cmd, check, capture_output):
+        (Path(cmd[1]).parent / "libturbofse.so").write_bytes(b"new")
+        assert not (native_dir / "libturbofse.so").exists() or \
+            (native_dir / "libturbofse.so").read_bytes() == b"old"
+
+    (native_dir / "libturbofse.so").write_bytes(b"old")
+    monkeypatch.setattr(native.subprocess, "run", build)
+    native._build()
+    assert (native_dir / "libturbofse.so").read_bytes() == b"new"
+
+    def fail(cmd, check, capture_output):
+        raise subprocess.CalledProcessError(1, cmd)
+    monkeypatch.setattr(native.subprocess, "run", fail)
+    with pytest.raises(subprocess.CalledProcessError):
+        native._build()
+    assert (native_dir / "libturbofse.so").read_bytes() == b"new"
+    assert not list(native_dir.glob(".build-*"))
+
+
+def test_native_load_builds_under_the_lock_once(native_dir, monkeypatch):
+    """A library that will not load (missing, stale or half-written) is
+    rebuilt once, under the lock; a build that fails leaves available()
+    False."""
+    from unittest import mock
+
+    built = []
+    monkeypatch.setattr(native, "_build", lambda: built.append(native._LOCK.exists()))
+    monkeypatch.setattr(native, "_open", lambda: mock.MagicMock() if built else None)
+    assert native.available() and built == [True]
+    assert native._load() is native._load() and len(built) == 1
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setattr(native, "_open", lambda: None)
+    assert not native.available() and len(built) == 2
 
 
 # ---------------------------------------------------------------------------

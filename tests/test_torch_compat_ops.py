@@ -1,0 +1,562 @@
+"""The port's compat device ops against the JAX package's, on the same
+numpy inputs: ops/bitio.py, ops/fse_tables.py, the plain versions of the
+five compat kernels (ops/fse_kernels.py, ops/huf_kernels.py) and
+build_dtables_x1 / pack_dtable_x2.
+
+The JAX ops are XLA (lax.scan / fori_loop), so they run on this box's CPU
+as they are.  Tolerance: exact (integer codecs; bit-exactness is the
+contract), outputs compared whole: the encodes' words (zero past the
+size), sizes, the decodes' bytes and err, corrupt streams included.  The
+tests marked ``gpu`` hold each CUDA kernel against its plain version on
+the same inputs; the JAX package is imported inside the tests that use it,
+so they also run where JAX is not installed.
+"""
+import numpy as np
+import pytest
+import torch
+
+from finitestateentropy_tpu_torch.ops import bitio, fse_kernels, fse_tables, huf_kernels
+from finitestateentropy_tpu_torch.refimpl.huf import (huf_build_ctable,
+                                                      huf_read_dtable_x2,
+                                                      huf_read_stats,
+                                                      huf_write_ctable)
+from finitestateentropy_tpu_torch.refimpl.hist import hist_count
+from finitestateentropy_tpu_torch.refimpl.norm import (fse_normalize_count,
+                                                       fse_optimal_table_log)
+from finitestateentropy_tpu_torch.turbo import rans_kernels as rk
+from finitestateentropy_tpu_torch.utils import generate_proba
+
+S = 4096                 # block size of these tests (block_size_id 2)
+OUT_BYTES = 4096 + 64
+P80, P14, P02 = (generate_proba(p, 3 * S) for p in (80, 14, 2))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _t(a, dev="cpu"):
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _np(t):
+    return t.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# inputs
+# ---------------------------------------------------------------------------
+
+
+def _escape_block(n: int = S) -> bytes:
+    """One symbol and a single rare one: the rare one gets a -1 norm."""
+    b = bytearray(b"\x07" * n)
+    b[n // 3] = 200
+    return bytes(b)
+
+
+def _small_alphabet_block(n: int = S) -> bytes:
+    """Eight symbols of skewed frequencies (tableLog 5 holds them)."""
+    rng = np.random.default_rng(11)
+    p = np.array([40, 20, 12, 10, 8, 5, 3, 2]) / 100
+    return rng.choice(8, size=n, p=p).astype(np.uint8).tobytes()
+
+
+FSE_BLOCKS = {   # name -> (block, tableLog or None for the codec's)
+    "p80": (P80[:S], None), "p14": (P14[:S], None), "p02": (P02[:S], None),
+    "alpha8_tlog5": (_small_alphabet_block(), 5), "p80_tlog12": (P80[S:2 * S], 12),
+    "escape": (_escape_block(), None), "n2": (b"\x05\x09", None),
+    "n3": (b"\x01\x02\x01", None), "ragged": (P14[:1001], None)}
+
+
+def _norm_of(block: bytes, tlog=None):
+    arr = np.frombuffer(block, np.uint8)
+    count = np.bincount(arr, minlength=256)
+    max_sv = int(arr.max())
+    tl = tlog or fse_optimal_table_log(11, len(block), max_sv)
+    return fse_normalize_count(tl, count[: max_sv + 1], len(block), max_sv)
+
+
+def _fse_inputs(names):
+    B = len(names)
+    src = np.zeros((B, S), np.uint8)
+    norms = np.zeros((B, 256), np.int32)
+    tlogs = np.zeros(B, np.int32)
+    ns = np.zeros(B, np.int32)
+    for k, name in enumerate(names):
+        block, tlog = FSE_BLOCKS[name]
+        norm, tl = _norm_of(block, tlog)
+        src[k, : len(block)] = np.frombuffer(block, np.uint8)
+        norms[k, : len(norm)] = norm
+        tlogs[k], ns[k] = tl, len(block)
+    return src, ns, norms, tlogs
+
+
+def _fse_streams(words, csize):
+    """Encoded words -> the decode's zero-padded [B, S'] streams (S' a
+    multiple of 4 past the bound), csize."""
+    streams = np.zeros((len(csize), S + 96), np.uint8)
+    raw = np.asarray(words).astype("<u4").view(np.uint8).reshape(len(csize), -1)
+    for k, c in enumerate(csize):
+        streams[k, :c] = raw[k, :c]
+    return streams
+
+
+HUF_BLOCKS = {"p80": P80[:S], "p14": P14[:S], "p80_odd": P80[:S - 1],
+              "p80_1021": P80[5:1026], "p14_517": P14[:517], "n13": P80[100:113],
+              "p02": P02[:S]}
+
+
+def _huf_inputs(names):
+    """src, ns, val, nb (the encode's) and the headers."""
+    B = len(names)
+    src = np.zeros((B, S), np.uint8)
+    ns = np.zeros(B, np.int32)
+    val = np.zeros((B, 256), np.uint16)
+    nb = np.zeros((B, 256), np.uint8)
+    headers = []
+    for k, name in enumerate(names):
+        block = HUF_BLOCKS[name]
+        count, max_sv, _ = hist_count(block)
+        tlog = fse_optimal_table_log(11, len(block), max_sv, minus=1, max_allowed=12)
+        table = huf_build_ctable(count, max_sv, tlog)
+        headers.append(huf_write_ctable(table, max_sv))
+        src[k, : len(block)] = np.frombuffer(block, np.uint8)
+        ns[k] = len(block)
+        val[k, : max_sv + 1] = table.val
+        nb[k, : max_sv + 1] = table.nb_bits
+    return src, ns, val, nb, headers
+
+
+def _huf_decode_inputs(words, sizes, ns, headers):
+    """(streams[4B, S'], csize[4B], nout[4B], tlogs[4B], weights[B, 256])."""
+    B = len(ns)
+    width = 2 * S // 4
+    raw = np.asarray(words).astype("<u4").view(np.uint8).reshape(B, 4, -1)
+    streams = np.zeros((4 * B, width), np.uint8)
+    csize = np.asarray(sizes).reshape(-1).astype(np.int32)
+    nout = np.zeros(4 * B, np.int32)
+    tlogs = np.zeros(4 * B, np.int32)
+    weights = np.zeros((B, 256), np.int32)
+    for k in range(B):
+        w, _rs, _nsym, tlog, _used = huf_read_stats(headers[k])
+        weights[k, : len(w)] = np.frombuffer(w, np.uint8)
+        seg = (int(ns[k]) + 3) // 4
+        for j in range(4):
+            c = csize[4 * k + j]
+            streams[4 * k + j, :c] = raw[k, j, :c]
+            nout[4 * k + j] = seg if j < 3 else int(ns[k]) - 3 * seg
+            tlogs[4 * k + j] = tlog
+    return streams, csize, nout, tlogs, weights
+
+
+# ---------------------------------------------------------------------------
+# ops/bitio.py
+# ---------------------------------------------------------------------------
+
+
+def test_bitio_equal_jax():
+    import jax.numpy as jnp
+
+    from finitestateentropy_tpu.ops import bitio as j_bitio
+
+    rng = np.random.default_rng(7)
+    buf = rng.integers(0, 256, (3, 64), dtype=np.uint8)
+    words = _np(bitio.bytes_to_words(_t(buf)))
+    assert np.array_equal(words, np.asarray(j_bitio.bytes_to_words(jnp.asarray(buf))))
+    assert np.array_equal(_np(bitio.words_to_bytes(_t(words))), buf)
+    assert np.array_equal(_np(bitio.words_to_bytes(_t(words.astype(np.uint32).view(np.int32)))),
+                          buf)
+    # reads at every offset and width, clamped past both ends
+    w0 = words[0].astype(np.uint32)
+    for bitpos in (-5, 0, 1, 31, 32, 33, 100, 480, 500, 511, 512, 600):
+        for nb in (0, 1, 5, 12, 25):
+            want = int(j_bitio.read_bits(jnp.asarray(w0), jnp.int32(bitpos), jnp.int32(nb)))
+            got = bitio.read_bits(_t(words[0]), torch.tensor(bitpos), torch.tensor(nb))
+            assert int(got) == want, (bitpos, nb)
+    # pack_fields: random fields, zero-width padding, a capacity overflow
+    vals = rng.integers(0, 1 << 20, (4, 50), dtype=np.uint32)
+    nbs = rng.integers(0, 21, (4, 50), dtype=np.int32)
+    nbs[1, 30:] = 0
+    for out_words in (40, 8):
+        jw, jt = j_bitio.pack_fields(jnp.asarray(vals), jnp.asarray(nbs), out_words)
+        pw, pt = bitio.pack_fields(_t(vals.astype(np.int64)), _t(nbs), out_words)
+        assert np.array_equal(_np(pw), np.asarray(jw)) and np.array_equal(_np(pt),
+                                                                         np.asarray(jt))
+
+
+def test_initial_bitpos_equal_jax():
+    """The last byte's highbit; a last byte of 0 (missing endMark) sets bad;
+    csize 0 gives bitpos 0; csize past the row clamps."""
+    import jax.numpy as jnp
+
+    from finitestateentropy_tpu.ops import bitio as j_bitio
+
+    st = np.zeros((6, 16), np.uint8)
+    st[0, 4] = 0x01
+    st[1, 9] = 0x80
+    st[2, 3] = 0x00          # missing endMark
+    st[4, 15] = 0x13
+    cs = np.array([5, 10, 4, 0, 16, 40], np.int32)
+    jb, jbad = j_bitio.initial_bitpos(jnp.asarray(st), jnp.asarray(cs))
+    pb, pbad = bitio.initial_bitpos(_t(st), _t(cs))
+    assert np.array_equal(_np(pb), np.asarray(jb))
+    assert np.array_equal(_np(pbad), np.asarray(jbad))
+    assert _np(pb).tolist()[:5] == [32, 79, 24, 0, 124]
+    assert _np(pbad).tolist()[:4] == [False, False, True, True]
+
+
+def test_highbit_exact():
+    x = torch.tensor([0, 1, 2, 3, 255, 256, 4095, 4096, (1 << 31) - 1, 1 << 31,
+                      (1 << 32) - 1])
+    assert bitio.highbit(x).tolist() == [-1, 0, 1, 1, 7, 8, 11, 12, 30, 31, 31]
+
+
+# ---------------------------------------------------------------------------
+# ops/fse_tables.py
+# ---------------------------------------------------------------------------
+
+
+def test_fse_tables_equal_jax():
+    """Norms with -1 entries, tableLog 5 and 12, a one-symbol-plus-escape
+    histogram, 2- and 3-symbol blocks."""
+    import jax.numpy as jnp
+
+    from finitestateentropy_tpu.ops import fse_tables as j_tables
+
+    names = list(FSE_BLOCKS)
+    _src, _ns, norms, tlogs = _fse_inputs(names)
+    assert (norms == -1).any(axis=1)[names.index("escape")]
+    assert (norms == -1).any() and {5, 12} <= set(tlogs.tolist())
+    jc = j_tables.build_ctables(jnp.asarray(norms), jnp.asarray(tlogs))
+    pc = fse_tables.build_ctables(_t(norms), _t(tlogs))
+    for a, b in zip(pc, jc):
+        assert np.array_equal(_np(a), np.asarray(b))
+    jd = j_tables.build_dtables(jnp.asarray(norms), jnp.asarray(tlogs))
+    pd = fse_tables.build_dtables(_t(norms), _t(tlogs))
+    for a, b in zip(pd, jd):
+        assert np.array_equal(_np(a), np.asarray(b))
+
+
+def test_fse_dtables_equal_host_twin():
+    """The device-built decode table equals refimpl.tables.build_dtable on
+    the live cells (the spread's tie order: low-probability cells at the
+    top, in increasing symbol and decreasing cell order)."""
+    from finitestateentropy_tpu_torch.refimpl.tables import build_dtable
+
+    names = ["p14", "p02", "escape", "alpha8_tlog5"]
+    _src, _ns, norms, tlogs = _fse_inputs(names)
+    ns_, sym, nb, _fast = fse_tables.build_dtables(_t(norms), _t(tlogs))
+    for k, name in enumerate(names):
+        norm, tl = _norm_of(*FSE_BLOCKS[name])
+        dt = build_dtable(norm, len(norm) - 1, tl)
+        live = 1 << tl
+        assert np.array_equal(_np(sym[k])[:live], dt.symbol)
+        assert np.array_equal(_np(nb[k])[:live], dt.nb_bits)
+        assert np.array_equal(_np(ns_[k])[:live], dt.new_state)
+
+
+# ---------------------------------------------------------------------------
+# C1 / C2: the FSE encode and decode (plain versions vs JAX)
+# ---------------------------------------------------------------------------
+
+
+FSE_NAMES = ["p80", "p14", "p02", "p80_tlog12", "escape", "n2", "n3", "ragged"]
+
+
+@pytest.fixture(scope="module")
+def fse_jax():
+    """JAX's encode and decode of the FSE batch (a bit flipped in block 1,
+    block 2's endMark byte zeroed, in a second decode)."""
+    import jax.numpy as jnp
+
+    from finitestateentropy_tpu.ops import fse_kernels as j_k, fse_tables as j_t
+
+    src, ns, norms, tlogs = _fse_inputs(FSE_NAMES)
+    ct = j_t.build_ctables(jnp.asarray(norms), jnp.asarray(tlogs))
+    words, csize = j_k.fse_encode_batch(jnp.asarray(src), jnp.asarray(ns),
+                                        jnp.asarray(tlogs), ct, max_syms=S,
+                                        out_bytes=OUT_BYTES)
+    words, csize = np.asarray(words), np.asarray(csize)
+    streams = _fse_streams(words, csize)
+    bad = streams.copy()
+    bad[1, csize[1] // 2] ^= 0x10
+    bad[2, csize[2] - 1] = 0
+    dt = j_t.build_dtables(jnp.asarray(norms), jnp.asarray(tlogs))[:3]
+    dec = {}
+    for name, st in (("clean", streams), ("corrupt", bad)):
+        out, err = j_k.fse_decode_batch(jnp.asarray(st), jnp.asarray(csize),
+                                        jnp.asarray(ns), jnp.asarray(tlogs), dt,
+                                        max_out=S)
+        dec[name] = (st, np.asarray(out), np.asarray(err))
+    return dict(src=src, ns=ns, norms=norms, tlogs=tlogs, words=words, csize=csize,
+                dec=dec)
+
+
+def test_fse_encode_plain_equals_jax(fse_jax):
+    j = fse_jax
+    ct = fse_tables.build_ctables(_t(j["norms"]), _t(j["tlogs"]))
+    words, csize = fse_kernels.fse_encode_batch(_t(j["src"]), _t(j["ns"]), _t(j["tlogs"]),
+                                                ct, max_syms=S, out_bytes=OUT_BYTES)
+    assert np.array_equal(_np(words).view(np.uint32), j["words"])
+    assert np.array_equal(_np(csize), j["csize"])
+    # n = 2: only the two flushes and the endMark
+    n2 = FSE_NAMES.index("n2")
+    assert j["csize"][n2] == (2 * j["tlogs"][n2] + 1 + 7) // 8
+
+
+@pytest.mark.parametrize("case", ["clean", "corrupt"])
+def test_fse_decode_plain_equals_jax(fse_jax, case):
+    j = fse_jax
+    st, want_out, want_err = j["dec"][case]
+    dt = fse_tables.build_dtables(_t(j["norms"]), _t(j["tlogs"]))[:3]
+    out, err = fse_kernels.fse_decode_batch(_t(st), _t(j["csize"]), _t(j["ns"]),
+                                            _t(j["tlogs"]), dt, max_out=S)
+    assert np.array_equal(_np(out), want_out) and np.array_equal(_np(err), want_err)
+    if case == "clean":
+        assert not want_err.any()
+        for k, n in enumerate(j["ns"]):
+            assert np.array_equal(want_out[k, :n], j["src"][k, :n])
+    else:       # a flipped bit may go unseen; a missing endMark may not
+        assert not want_err[0] and want_err[2]
+
+
+def test_fse_decode_n_out_at_most_2_never_checks():
+    """n_out <= 2 never sets the checkpoint error, and the initial-state
+    parity of n = 2 picks state1 from the even index."""
+    src, ns, norms, tlogs = _fse_inputs(["n2", "n2", "n3"])
+    ct = fse_tables.build_ctables(_t(norms), _t(tlogs))
+    words, csize = fse_kernels.fse_encode_batch(_t(src), _t(ns), _t(tlogs), ct,
+                                                max_syms=S, out_bytes=OUT_BYTES)
+    streams = _fse_streams(_np(words).view(np.uint32), _np(csize))
+    streams[1, 0] ^= 0x01                    # a flipped state bit
+    dt = fse_tables.build_dtables(_t(norms), _t(tlogs))[:3]
+    out, err = fse_kernels.fse_decode_batch(_t(streams), csize, _t(ns), _t(tlogs),
+                                            dt, max_out=S)
+    assert not err[0] and not err[1]
+    assert _np(out)[0, :2].tolist() == [5, 9]
+    assert _np(out)[2, :3].tolist() == [1, 2, 1]
+
+
+# ---------------------------------------------------------------------------
+# C3 / C4 / C5: the Huff0 encode and decodes (plain versions vs JAX)
+# ---------------------------------------------------------------------------
+
+
+HUF_NAMES = list(HUF_BLOCKS)
+
+
+@pytest.fixture(scope="module")
+def huf_jax():
+    import jax.numpy as jnp
+
+    from finitestateentropy_tpu.ops import huf_kernels as j_k
+    from finitestateentropy_tpu.refimpl.huf import huf_read_dtable_x2 as j_rd2
+
+    src, ns, val, nb, headers = _huf_inputs(HUF_NAMES)
+    seg_bytes = (S + 3) // 4 + 64
+    words, sizes = j_k.huf_encode_4x_batch(jnp.asarray(src), jnp.asarray(ns),
+                                           jnp.asarray(val), jnp.asarray(nb), S,
+                                           seg_bytes)
+    words, sizes = np.asarray(words), np.asarray(sizes)
+    streams, csize, nout, tlogs, weights = _huf_decode_inputs(words, sizes, ns, headers)
+    bad = streams.copy()
+    bad[4 * 1 + 2, csize[6] // 2] ^= 0x40      # block 1, stream 2
+    bad[4 * 2 + 0, csize[8] - 1] = 0           # block 2, stream 0: no endMark
+    tl_blocks = tlogs.reshape(-1, 4)[:, 0]
+    byte_t, nb_t = j_k.build_dtables_x1(jnp.asarray(weights), jnp.asarray(tl_blocks))
+    x2 = np.stack([j_k.pack_dtable_x2(j_rd2(h)[0]) for h in headers])
+    x2_tl = np.array([j_rd2(h)[0].table_log for h in headers], np.int32)
+    dec = {}
+    for name, st in (("clean", streams), ("corrupt", bad)):
+        o1, e1 = j_k.huf_decode_4x1_batch(
+            jnp.asarray(st), jnp.asarray(csize), jnp.asarray(nout), jnp.asarray(tlogs),
+            (jnp.repeat(byte_t, 4, axis=0), jnp.repeat(nb_t, 4, axis=0)), max_seg=S // 4)
+        o2, e2 = j_k.huf_decode_4x2_batch(
+            jnp.asarray(st), jnp.asarray(csize), jnp.asarray(nout),
+            jnp.asarray(np.repeat(x2_tl, 4)), jnp.asarray(np.repeat(x2, 4, axis=0)),
+            max_seg=S // 4)
+        dec[name] = (st, (np.asarray(o1), np.asarray(e1)), (np.asarray(o2), np.asarray(e2)))
+    return dict(src=src, ns=ns, val=val, nb=nb, headers=headers, words=words,
+                sizes=sizes, csize=csize, nout=nout, tlogs=tlogs, weights=weights,
+                byte_t=np.asarray(byte_t), nb_t=np.asarray(nb_t), x2=x2, x2_tl=x2_tl,
+                dec=dec)
+
+
+def test_huf_encode_plain_equals_jax(huf_jax):
+    j = huf_jax
+    words, sizes = huf_kernels.huf_encode_4x_batch(
+        _t(j["src"]), _t(j["ns"]), _t(j["val"].astype(np.int32)),
+        _t(j["nb"].astype(np.int32)), S, (S + 3) // 4 + 64)
+    assert np.array_equal(_np(words).view(np.uint32), j["words"])
+    assert np.array_equal(_np(sizes), j["sizes"])
+    # n = 13: segments of 4, the 4th 1 byte
+    k = HUF_NAMES.index("n13")
+    assert j["nout"][4 * k: 4 * k + 4].tolist() == [4, 4, 4, 1]
+
+
+def test_huf_dtables_equal_jax(huf_jax):
+    """X1 cells ordered by (weight, symbol); X2 packed tables."""
+    from finitestateentropy_tpu.refimpl.huf import huf_read_dtable_x2 as j_rd2
+
+    j = huf_jax
+    tl_blocks = j["tlogs"].reshape(-1, 4)[:, 0]
+    bt, nt = huf_kernels.build_dtables_x1(_t(j["weights"]), _t(tl_blocks))
+    assert np.array_equal(_np(bt), j["byte_t"]) and np.array_equal(_np(nt), j["nb_t"])
+    for h, want in zip(j["headers"], j["x2"]):
+        dt2, _used = huf_read_dtable_x2(h)
+        assert np.array_equal(huf_kernels.pack_dtable_x2(dt2), want)
+        assert dt2.table_log == j_rd2(h)[0].table_log
+
+
+@pytest.mark.parametrize("case", ["clean", "corrupt"])
+@pytest.mark.parametrize("mode", ["x1", "x2"])
+def test_huf_decode_plain_equals_jax(huf_jax, case, mode):
+    j = huf_jax
+    st, x1_want, x2_want = j["dec"][case]
+    args = (_t(st), _t(j["csize"]), _t(j["nout"]))
+    if mode == "x1":
+        tables = (_t(np.repeat(j["byte_t"], 4, axis=0)), _t(np.repeat(j["nb_t"], 4, axis=0)))
+        out, err = huf_kernels.huf_decode_4x1_batch(*args, _t(j["tlogs"]), tables,
+                                                    max_seg=S // 4)
+        want = x1_want
+    else:
+        out, err = huf_kernels.huf_decode_4x2_batch(
+            *args, _t(np.repeat(j["x2_tl"], 4)), _t(np.repeat(j["x2"], 4, axis=0)),
+            max_seg=S // 4)
+        want = x2_want
+    assert np.array_equal(_np(out), want[0]) and np.array_equal(_np(err), want[1])
+    if case == "clean":
+        assert not want[1].any()
+        for k, n in enumerate(j["ns"]):
+            seg = (int(n) + 3) // 4
+            got = np.concatenate([want[0][4 * k + q, : (seg if q < 3 else n - 3 * seg)]
+                                  for q in range(4)])
+            assert np.array_equal(got, j["src"][k, :n])
+    else:
+        assert want[1][8] and not want[1][:4].any()
+
+
+def test_huf_x2_last_symbol_rule():
+    """A length-2 entry at a stream's last position writes one byte and
+    clamps the cursor at 0: odd segments of Proba80 hit it."""
+    src, ns, val, nb, headers = _huf_inputs(["p80_odd", "p80_1021", "p14_517"])
+    words, sizes = huf_kernels.huf_encode_4x_batch(_t(src), _t(ns), _t(val.astype(np.int32)),
+                                                   _t(nb.astype(np.int32)), S,
+                                                   (S + 3) // 4 + 64)
+    streams, csize, nout, _tl, _w = _huf_decode_inputs(_np(words).view(np.uint32),
+                                                       _np(sizes), ns, headers)
+    dts = [huf_read_dtable_x2(h)[0] for h in headers]
+    x2 = np.repeat(np.stack([huf_kernels.pack_dtable_x2(d) for d in dts]), 4, axis=0)
+    tl = np.repeat(np.array([d.table_log for d in dts], np.int32), 4)
+    out, err = huf_kernels.huf_decode_4x2_batch(_t(streams), _t(csize), _t(nout), _t(tl),
+                                                _t(x2), max_seg=S // 4)
+    assert not _np(err).any()
+    assert any(nout[r] % 2 for r in range(len(nout)))
+    for k, n in enumerate(ns):
+        seg = (int(n) + 3) // 4
+        got = np.concatenate([_np(out)[4 * k + q, : (seg if q < 3 else n - 3 * seg)]
+                              for q in range(4)])
+        assert np.array_equal(got, src[k, :n])
+
+
+def test_huf_x2_lookups_follow_the_codes():
+    """huf_decode_4x2_lookups counts each stream's lookups as a greedy
+    parse of its symbols' codes through the X2 table gives them (one or
+    two symbols a lookup, one at the last position): fewer than n_out on
+    Proba80, whose main symbol has a 1-bit code."""
+    names = ["p80", "p80_odd", "p80_1021", "p14_517"]
+    src, ns, val, nb, headers = _huf_inputs(names)
+    words, sizes = huf_kernels.huf_encode_4x_batch(_t(src), _t(ns), _t(val.astype(np.int32)),
+                                                   _t(nb.astype(np.int32)), S,
+                                                   (S + 3) // 4 + 64)
+    streams, csize, nout, _tl, _w = _huf_decode_inputs(_np(words).view(np.uint32),
+                                                       _np(sizes), ns, headers)
+    dts = [huf_read_dtable_x2(h)[0] for h in headers]
+    x2 = np.repeat(np.stack([huf_kernels.pack_dtable_x2(d) for d in dts]), 4, axis=0)
+    tl = np.repeat(np.array([d.table_log for d in dts], np.int32), 4)
+    got = _np(huf_kernels.huf_decode_4x2_lookups(_t(streams), _t(csize), _t(nout), _t(tl),
+                                                 _t(x2), max_seg=S // 4))
+    want = []
+    for k, n in enumerate(ns):
+        seg, dt = (int(n) + 3) // 4, dts[k]
+        for q in range(4):
+            syms = src[k, q * seg: min((q + 1) * seg, int(n))]
+            p = count = 0
+            while p < len(syms):
+                acc = bits = 0
+                for s in syms[p:]:
+                    if bits >= dt.table_log:
+                        break
+                    acc, bits = (acc << int(nb[k, s])) | int(val[k, s]), bits + int(nb[k, s])
+                shift = bits - dt.table_log
+                idx = acc >> shift if shift >= 0 else acc << -shift
+                p += 2 if dt.length[idx] == 2 and p + 1 < len(syms) else 1
+                count += 1
+            want.append(count)
+    assert got.tolist() == want
+    assert (got <= nout).all() and (2 * got >= nout).all()
+    assert got[:4].sum() < 0.75 * nout[:4].sum()       # Proba80: mostly pairs
+
+
+# ---------------------------------------------------------------------------
+# on the GPU: each CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_cuda_fse_kernels_equal_plain(cuda):
+    src, ns, norms, tlogs = _fse_inputs(FSE_NAMES)
+    rk.reset_launches()
+    outs = {}
+    for dev in ("cpu", cuda):
+        ct = fse_tables.build_ctables(_t(norms, dev), _t(tlogs, dev))
+        words, csize = fse_kernels.fse_encode_batch(_t(src, dev), _t(ns, dev),
+                                                    _t(tlogs, dev), ct, max_syms=S,
+                                                    out_bytes=OUT_BYTES)
+        streams = _fse_streams(_np(words).view(np.uint32), _np(csize))
+        streams[1, _np(csize)[1] // 2] ^= 0x10
+        streams[2, _np(csize)[2] - 1] = 0
+        dt = fse_tables.build_dtables(_t(norms, dev), _t(tlogs, dev))[:3]
+        out, err = fse_kernels.fse_decode_batch(_t(streams, dev), csize, _t(ns, dev),
+                                                _t(tlogs, dev), dt, max_out=S)
+        outs[str(dev)] = [_np(x) for x in (words, csize, out, err)]
+    torch.cuda.synchronize()
+    assert all(np.array_equal(a, b) for a, b in zip(outs["cpu"], outs["cuda"]))
+    assert outs["cuda"][3][2] and not outs["cuda"][3][0]
+    assert rk.launches["fse_encode"] == 1 and rk.launches["fse_decode"] == 1
+
+
+@pytest.mark.gpu
+def test_cuda_huf_kernels_equal_plain(cuda):
+    src, ns, val, nb, headers = _huf_inputs(HUF_NAMES)
+    rk.reset_launches()
+    outs = {}
+    for dev in ("cpu", cuda):
+        words, sizes = huf_kernels.huf_encode_4x_batch(
+            _t(src, dev), _t(ns, dev), _t(val.astype(np.int32), dev),
+            _t(nb.astype(np.int32), dev), S, (S + 3) // 4 + 64)
+        streams, csize, nout, tlogs, weights = _huf_decode_inputs(
+            _np(words).view(np.uint32), _np(sizes), ns, headers)
+        streams[6, csize[6] // 2] ^= 0x40
+        streams[8, csize[8] - 1] = 0
+        bt, nt = huf_kernels.build_dtables_x1(_t(weights, dev),
+                                              _t(tlogs.reshape(-1, 4)[:, 0], dev))
+        args = (_t(streams, dev), _t(csize, dev), _t(nout, dev))
+        o1, e1 = huf_kernels.huf_decode_4x1_batch(
+            *args, _t(tlogs, dev), (bt.repeat_interleave(4, 0), nt.repeat_interleave(4, 0)),
+            max_seg=S // 4)
+        dts = [huf_read_dtable_x2(h)[0] for h in headers]
+        x2 = np.repeat(np.stack([huf_kernels.pack_dtable_x2(d) for d in dts]), 4, axis=0)
+        tl2 = np.repeat(np.array([d.table_log for d in dts], np.int32), 4)
+        o2, e2 = huf_kernels.huf_decode_4x2_batch(*args, _t(tl2, dev), _t(x2, dev),
+                                                  max_seg=S // 4)
+        outs[str(dev)] = [_np(x) for x in (words, sizes, o1, e1, o2, e2)]
+    torch.cuda.synchronize()
+    assert all(np.array_equal(a, b) for a, b in zip(outs["cpu"], outs["cuda"]))
+    assert outs["cuda"][3][8] and outs["cuda"][5][8]
+    assert {k: v for k, v in rk.launches.items() if v} == {
+        "huf_encode_4x": 1, "huf_decode_4x:x1": 1, "huf_decode_4x:x2": 1}

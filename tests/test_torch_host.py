@@ -527,3 +527,117 @@ def test_native_copy_equal():
     assert blob16 == j_native.rans16_compress_native(sym, 1 << 17)
     assert p_native._walk_groups16(blob16) == len(sym)
     assert np.array_equal(p_native.rans16_decompress_native(blob16), sym)
+
+
+# ---------------------------------------------------------------------------
+# the compat codecs' host copies: config, refimpl/{bitstream, blocktypes,
+# fse, huf, zlibh}, io/frame.py, models/select.py
+# ---------------------------------------------------------------------------
+
+
+def test_config_constants_equal():
+    import finitestateentropy_tpu.config as j_config
+    import finitestateentropy_tpu_torch.config as p_config
+
+    names = [n for n in dir(p_config) if n.isupper()]
+    assert {"FSE_MAX_SYMBOL_VALUE", "HUF_TABLELOG_MAX", "FIO_MAGIC_HUF",
+            "FIO_BLOCKSIZEID_DEFAULT", "BT_CRC"} <= set(names)
+    for n in names:
+        assert getattr(p_config, n) == getattr(j_config, n), n
+    for size in (0, 1, 4096, 32768, 65536):
+        for f in ("fse_blockbound", "fse_compressbound", "huf_blockbound",
+                  "huf_compressbound", "fse_tablestep"):
+            assert getattr(p_config, f)(size) == getattr(j_config, f)(size)
+
+
+def test_bitstream_copy_equal():
+    """BitWriter / BitReader: the same bytes and the same reads."""
+    from finitestateentropy_tpu.refimpl import bitstream as j_bs
+    from finitestateentropy_tpu_torch.refimpl import bitstream as p_bs
+
+    rng = np.random.default_rng(4)
+    fields = [(int(rng.integers(0, 1 << 12)), int(rng.integers(0, 13)))
+              for _ in range(3000)]
+    out = []
+    for bs in (j_bs, p_bs):
+        w = bs.BitWriter(16000)
+        for i, (v, nb) in enumerate(fields):
+            w.add_bits(v, nb)
+            if i % 3 == 2:
+                w.flush()
+        size = w.close()
+        out.append(w.bytes(size))
+    assert out[0] == out[1] and len(out[0]) > 1000
+    reads = []
+    for bs in (j_bs, p_bs):
+        r = bs.BitReader(out[0])
+        got = []
+        for _v, nb in fields[:200]:
+            got.append(r.read_bits(nb))
+            if len(got) % 4 == 0:
+                got.append(r.reload())
+        reads.append(got)
+    assert reads[0] == reads[1]
+
+
+@pytest.mark.parametrize("name", list(CORPORA))
+def test_fse_huf_zlibh_twins_equal(name):
+    import finitestateentropy_tpu.refimpl.fse as j_fse
+    import finitestateentropy_tpu.refimpl.huf as j_huf
+    import finitestateentropy_tpu.refimpl.zlibh as j_zlibh
+    import finitestateentropy_tpu_torch.refimpl.fse as p_fse
+    import finitestateentropy_tpu_torch.refimpl.huf as p_huf
+    import finitestateentropy_tpu_torch.refimpl.zlibh as p_zlibh
+
+    data = _corpus(name, 20000).tobytes()
+    for part in (data, data[:777], data[:13]):
+        r, jr = p_fse.fse_compress(part), j_fse.fse_compress(part)
+        assert (int(r.kind), r.data) == (int(jr.kind), jr.data)
+        if r.data:
+            assert p_fse.fse_decompress(r.data, len(part)) == part
+        r, jr = p_huf.huf_compress(part), j_huf.huf_compress(part)
+        assert (int(r.kind), r.data) == (int(jr.kind), jr.data)
+        if r.data:
+            assert p_huf.huf_decompress(r.data, len(part)) == part
+            assert (p_huf.huf_decompress_4x2(r.data, len(part))
+                    == j_huf.huf_decompress_4x2(r.data, len(part)) == part)
+            pt, pu = p_huf.huf_read_dtable_x2(r.data)
+            jt, ju = j_huf.huf_read_dtable_x2(r.data)
+            assert pu == ju and pt.table_log == jt.table_log
+            assert np.array_equal(pt.nb_bits, jt.nb_bits)
+        z = p_zlibh.zlibh_compress(part)
+        assert z == j_zlibh.zlibh_compress(part)
+        assert p_zlibh.zlibh_decompress(z, len(part)) == part
+
+
+@pytest.mark.parametrize("name", list(CORPORA))
+def test_frame_and_select_copies_equal(name):
+    from finitestateentropy_tpu.io import frame as j_fio
+    from finitestateentropy_tpu.models import select as j_select
+    from finitestateentropy_tpu_torch.io import frame as p_fio
+    from finitestateentropy_tpu_torch.models import select as p_select
+
+    data = _corpus(name, 3 * 4096 + 1000).tobytes() + b"\x01" * 5000
+    for codec in ("fse", "huf", "zlibh"):
+        blob = p_fio.compress_bytes(data, codec, 2)
+        assert blob == j_fio.compress_bytes(data, codec, 2)
+        assert p_fio.decompress_bytes(blob) == data == j_fio.decompress_bytes(blob)
+    blocks = p_fio.split_blocks(data, 4096)
+    assert blocks == j_fio.split_blocks(data, 4096)
+    assert p_select.choose_codec(blocks) == j_select.choose_codec(blocks)
+    count, max_sv, _ = p_hist.hist_count(blocks[0])
+    for est in ("huf_estimate_block", "fse_estimate_block"):
+        assert (getattr(p_select, est)(count, max_sv, 4096)
+                == getattr(j_select, est)(count, max_sv, 4096))
+    assert p_fio.MAGIC_BY_CODEC == j_fio.MAGIC_BY_CODEC
+
+
+def test_blocktypes_copy_equal():
+    from finitestateentropy_tpu.refimpl import blocktypes as j_bt
+    from finitestateentropy_tpu_torch.refimpl import blocktypes as p_bt
+
+    assert [(k.name, int(k)) for k in p_bt.Kind] == [(k.name, int(k)) for k in j_bt.Kind]
+    for ctor in ("raw", "rle"):
+        assert int(getattr(p_bt.BlockResult, ctor)().kind) == int(getattr(j_bt.BlockResult,
+                                                                          ctor)().kind)
+    assert p_bt.BlockResult.compressed(b"ab").data == b"ab"

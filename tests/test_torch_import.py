@@ -21,13 +21,17 @@ names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in sorted(names):
     importlib.import_module(name)
 # the multi-device layer, the v0 codec, the resident pipeline and its
-# device ops, the CLI and its host modules are among them
+# device ops, the CLI and its host modules, the compat codecs, their ops,
+# frame layer, twins and sharded steps are among them
 assert {pkg.__name__ + "." + m for m in (
     "parallel.mesh", "parallel.turbo_dp", "parallel.distributed",
     "parallel.dryrun", "turbo.kernels", "turbo.format",
     "refimpl.tables", "ops.hist", "ops.norm", "ops.rans_tables",
     "turbo.device_api", "native", "utils.xxhash32", "io.jobs",
-    "cli")} <= names, sorted(names)
+    "cli", "config", "refimpl.bitstream", "refimpl.blocktypes", "refimpl.fse",
+    "refimpl.huf", "refimpl.zlibh", "io.frame", "models", "models.select",
+    "models.fse_codec", "models.huf_codec", "ops.bitio", "ops.fse_tables",
+    "ops.fse_kernels", "ops.huf_kernels", "parallel.dp")} <= names, sorted(names)
 from finitestateentropy_tpu_torch.turbo.api import (turbo_compress_device,
                                                     turbo_decompress_device)
 from finitestateentropy_tpu_torch.turbo.rans import rans_compress
@@ -59,6 +63,14 @@ x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
 resident = rans_compress_resident(x, 40960)
 assert resident == blob
 assert rans_decompress_resident(resident, device="cpu").numpy().tobytes() == data
+# the compat codecs on the CPU: frames equal the host twin's
+from finitestateentropy_tpu_torch.io import frame as fio
+from finitestateentropy_tpu_torch.models import get_batch_codec
+for codec in ("fse", "huf"):
+    comp, dec = get_batch_codec(codec, block_size=4096, device="cpu")
+    fr = fio.compress_bytes(data[:9000], codec, 2, comp)
+    assert fr == fio.compress_bytes(data[:9000], codec, 2)
+    assert fio.decompress_bytes(fr, dec) == data[:9000]
 print("ok")
 """
 
@@ -81,7 +93,10 @@ def test_sources_import_no_jax_package():
     assert {"mesh.py", "turbo_dp.py", "distributed.py", "dryrun.py",
             "kernels.py", "format.py", "tables.py", "device_api.py",
             "rans_tables.py", "native.py", "xxhash32.py", "jobs.py",
-            "cli.py"} <= {f.name for f in files}
+            "cli.py", "bitio.py", "fse_tables.py", "fse_kernels.py",
+            "huf_kernels.py", "fse_codec.py", "huf_codec.py", "select.py",
+            "frame.py", "dp.py", "fse.py", "huf.py", "zlibh.py",
+            "blocktypes.py", "bitstream.py"} <= {f.name for f in files}
     offenders = [str(f.relative_to(REPO)) for f in files
                  if bad.search(f.read_text())]
     assert offenders == []

@@ -243,9 +243,9 @@ def test_dryrun_multichip_on_a_cpu_mesh():
 
     lines = []
     dryrun_multichip(CPU_DEVICES, "cpu", lines.append)
-    assert len(lines) == 7 and all(" ok" in ln for ln in lines)
+    assert len(lines) == 8 and all(" ok" in ln for ln in lines)
     # the totals of the JAX package's 8-device dry run (MULTICHIP_r05.json)
-    for what, total in (("turbo ok", 475), ("turbo u16 ok", 21414),
+    for what, total in (("compat ok", 5832), ("turbo ok", 475), ("turbo u16 ok", 21414),
                         ("turbo pair wire ok", 338), ("turbo quad wire ok", 5678)):
         assert any(f"{what}, total = {total} " in ln for ln in lines), what
 

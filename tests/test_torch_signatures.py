@@ -164,3 +164,56 @@ def test_lazy_names_resolve(name):
     assert hasattr(j_turbo, name)
     with pytest.raises(AttributeError):
         getattr(turbo, "no_such_entry")
+
+
+# ---------------------------------------------------------------------------
+# the compat codecs: ops, models, the frame layer and the sharded steps
+# ---------------------------------------------------------------------------
+
+# (module, name, the port's parameters added after JAX's)
+COMPAT_API = [
+    ("ops.bitio", "bytes_to_words", []), ("ops.bitio", "words_to_bytes", []),
+    ("ops.bitio", "read_bits", []), ("ops.bitio", "pack_fields", []),
+    ("ops.bitio", "initial_bitpos", []),
+    ("ops.fse_tables", "build_ctables", []), ("ops.fse_tables", "build_dtables", []),
+    ("ops.fse_kernels", "fse_encode_batch", []),
+    ("ops.fse_kernels", "fse_decode_batch", []),
+    ("ops.huf_kernels", "huf_encode_4x_batch", []),
+    ("ops.huf_kernels", "build_dtables_x1", []),
+    ("ops.huf_kernels", "huf_decode_4x1_batch", []),
+    ("ops.huf_kernels", "huf_decode_4x2_batch", []),
+    ("ops.huf_kernels", "pack_dtable_x2", []),
+    ("models.fse_codec", "FseTpuCodec", ["device"]),
+    ("models.huf_codec", "HufTpuCodec", ["device"]),
+    ("models", "AutoTpuCodec", ["device"]),
+    ("models", "get_batch_codec", ["block_size", "device"]),
+    ("models.select", "choose_codec", []),
+    ("io.frame", "compress_bytes", []), ("io.frame", "decompress_bytes", []),
+    ("io.frame", "compress_file", []), ("io.frame", "decompress_file", []),
+    ("parallel.dp", "sharded_encode", []), ("parallel.dp", "sharded_decode", []),
+    ("parallel.dp", "sharded_huf_encode", []),
+    ("parallel.dp", "sharded_huf_decode", []),
+    ("parallel.dp", "sharded_fse_step", []),
+]
+
+
+def _params(obj) -> list[tuple[str, object]]:
+    sig = inspect.signature(obj)
+    return [(p.name, p.default) for p in sig.parameters.values()]
+
+
+@pytest.mark.parametrize("module,name,extra", COMPAT_API,
+                         ids=[f"{m}.{n}" for m, n, _e in COMPAT_API])
+def test_compat_api_follows_jax(module, name, extra):
+    """The same parameters, in JAX's order and with JAX's defaults; the
+    port's additions (device, and the codecs' block size) come last."""
+    import importlib
+
+    port = getattr(importlib.import_module(f"finitestateentropy_tpu_torch.{module}"), name)
+    jax = getattr(importlib.import_module(f"finitestateentropy_tpu.{module}"), name)
+    p, j = _params(port), _params(jax)
+    assert [n for n, _d in p] == [n for n, _d in j] + extra
+    assert p[: len(j)] == j
+    if isinstance(port, type):
+        for meth in ("compress_blocks", "decompress_blocks"):
+            assert _params(getattr(port, meth)) == _params(getattr(jax, meth))
