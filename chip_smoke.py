@@ -8,7 +8,9 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 Phases, one result line each:
   1. the GPU's name and power limit (nvidia-smi);
   2. build the CUDA sources of finitestateentropy_tpu_torch/csrc (nvcc, one
-     process per source, started together);
+     process per source, started together); the FSE kernels' launch shape
+     at 2048 blocks (blocks a CTA, shared memory, CTAs an SM holds,
+     registers);
   3. every kernel entry in every mode against its plain PyTorch version on
      the GPU, bit for bit, on 3-group batches (1 MiB groups; 512 Ki-symbol
      U16 groups): the encodes (rans_encode2 byte / pair / quad in the
@@ -19,7 +21,9 @@ Phases, one result line each:
      v0 frames) with group 1 corrupted (its err must be set, the others'
      not); and the compat kernels (fse_encode, fse_decode, huf_encode_4x,
      huf_decode_4x x1 and x2) on 4 KiB blocks of Proba80 / 14 / 2, a
-     ragged, an n = 2 and a 13-byte block, one endMark byte zeroed;
+     ragged, an n = 2 and a 13-byte block, one endMark byte zeroed, and
+     the FSE pair on two whole 32 KiB blocks (one decoded from an eighth
+     of its stream) and on payloads past a 600-byte buffer;
   4. twenty-six paths, each with the launch counts set to 0 just before it
      and read just after; twelve through the entry points
      (turbo_compress_device / turbo_decompress_device,
@@ -436,6 +440,34 @@ def run_cli(argv: list[str]) -> dict:
     return json.loads(r.stderr.strip().splitlines()[-1])
 
 
+def fse_occupancy(built: dict, blocks: int) -> dict:
+    """C1's and C2's launch shape for `blocks` blocks (fse_*_config: blocks
+    a CTA, threads, dynamic shared bytes, the CTAs an SM can hold by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, CTAs, SMs), whether the
+    CTAs fit the card at once, and the kernels' registers as ptxas gave
+    them."""
+    import re
+
+    from finitestateentropy_tpu_torch.turbo._build import load
+
+    out = {"blocks": blocks}
+    keys = ("blocks_per_cta", "threads", "dynamic_smem_bytes", "ctas_per_sm", "ctas", "sms")
+    for name in ("fse_encode", "fse_decode"):
+        fn = getattr(load(name), f"{name}_config")
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        cfg = (ctypes.c_int * len(keys))()
+        rc = fn(blocks, cfg)
+        require(rc == 0 and cfg[3] >= 1, f"{name}_config: cudaError_t {rc}, {list(cfg)}")
+        d = dict(zip(keys, cfg))
+        ptxas = built.get(name, {}).get("ptxas", [])
+        d["one_wave"] = d["ctas"] <= d["ctas_per_sm"] * d["sms"]
+        d["registers"] = [int(r) for ln in ptxas for r in re.findall(r"Used (\d+) registers", ln)]
+        d["ptxas"] = ptxas or "not built in this run"
+        out[name] = d
+    return out
+
+
 def chain_step_ns() -> dict:
     """ns per dependent step of each kind csrc/chain_probe.cu measures, on
     one block: shared-memory load, global load hitting L1, global load
@@ -637,8 +669,12 @@ def compat_small_cases() -> list[dict]:
     """C1-C5 at small shapes (4 KiB blocks of Proba80 / 14 / 2, a ragged
     block, an n = 2 block; Huff0 blocks of 13 bytes and odd lengths), each
     wrapper's outputs against its plain version's, whole; the decodes with
-    one endMark byte zeroed (FSE block 2; Huff0 block 2, stream 0): {key,
-    run, plain, err (the flags the decode must give)}."""
+    one endMark byte zeroed (FSE block 2; Huff0 block 2, stream 0).  And
+    C1 / C2 on two whole 32 KiB blocks (Proba80, Proba14; the second
+    decoded from an eighth of its stream, so its cursor falls below bit 0
+    long before the end) and on 4 KiB blocks whose payloads run past a
+    600-byte buffer (the words past it dropped, csize counting them):
+    {key, run, plain, err (the flags the decode must give, or None)}."""
     from finitestateentropy_tpu_torch.ops import bitio, fse_kernels as fk, fse_tables
     from finitestateentropy_tpu_torch.ops import huf_kernels as hk
     from finitestateentropy_tpu_torch.refimpl.hist import hist_count
@@ -650,35 +686,56 @@ def compat_small_cases() -> list[dict]:
                                                            fse_optimal_table_log)
     from finitestateentropy_tpu_torch.utils import generate_proba
 
+    def fse_cases(blocks, S, out_bytes, spoil):
+        """The FSE encode and decode of blocks in rows of S bytes; spoil(
+        streams, csize) alters the decode's input in place and returns the
+        flags the decode must give."""
+        B = len(blocks)
+        src = np.zeros((B, S), np.uint8)
+        norms = np.zeros((B, 256), np.int32)
+        tlogs, ns = np.zeros(B, np.int32), np.zeros(B, np.int32)
+        for k, b in enumerate(blocks):
+            arr = np.frombuffer(b, np.uint8)
+            max_sv = int(arr.max())
+            norm, tlogs[k] = fse_normalize_count(
+                fse_optimal_table_log(11, len(b), max_sv),
+                np.bincount(arr, minlength=256)[: max_sv + 1], len(b), max_sv)
+            src[k, : len(b)], ns[k] = arr, len(b)
+            norms[k, : len(norm)] = norm
+        on = {k: torch.from_numpy(v).to(DEV) for k, v in
+              (("src", src), ("n", ns), ("norm", norms), ("tlog", tlogs))}
+        ct = fse_tables.build_ctables(on["norm"], on["tlog"])
+        enc = (on["src"], on["n"], on["tlog"], ct)
+        kw = dict(max_syms=S, out_bytes=out_bytes)
+        words, csize = fk.fse_encode_batch_plain(*enc, **kw)
+        streams = bitio.words_to_bytes(words)
+        flags = spoil(streams, csize)
+        dt = fse_tables.build_dtables(on["norm"], on["tlog"])[:3]
+        dec = (streams, csize, on["n"], on["tlog"], dt)
+        return [dict(key="fse_encode", run=partial(fk.fse_encode_batch, *enc, **kw),
+                     plain=partial(fk.fse_encode_batch_plain, *enc, **kw), err=None),
+                dict(key="fse_decode", run=partial(fk.fse_decode_batch, *dec, max_out=S),
+                     plain=partial(fk.fse_decode_batch_plain, *dec, max_out=S),
+                     err=flags)]
+
+    def no_endmark(streams, csize):
+        streams[2, int(csize[2]) - 1] = 0
+        return [False, False, True, False, False]
+
+    def cursor_low(streams, csize):
+        csize[1] //= 8
+        return [False, True]
+
     S = 4096
     p80, p14, p02 = (generate_proba(p, S) for p in (80, 14, 2))
     blocks = [p80, p14, p02, p14[:1001], b"\x05\x09"]
-    B = len(blocks)
-    src = np.zeros((B, S), np.uint8)
-    norms = np.zeros((B, 256), np.int32)
-    tlogs, ns = np.zeros(B, np.int32), np.zeros(B, np.int32)
-    for k, b in enumerate(blocks):
-        arr = np.frombuffer(b, np.uint8)
-        max_sv = int(arr.max())
-        norm, tlogs[k] = fse_normalize_count(
-            fse_optimal_table_log(11, len(b), max_sv),
-            np.bincount(arr, minlength=256)[: max_sv + 1], len(b), max_sv)
-        src[k, : len(b)], ns[k] = arr, len(b)
-        norms[k, : len(norm)] = norm
-    on = {k: torch.from_numpy(v).to(DEV) for k, v in
-          (("src", src), ("n", ns), ("norm", norms), ("tlog", tlogs))}
-    ct = fse_tables.build_ctables(on["norm"], on["tlog"])
-    enc = (on["src"], on["n"], on["tlog"], ct)
-    kw = dict(max_syms=S, out_bytes=S + 64)
-    words, csize = fk.fse_encode_batch_plain(*enc, **kw)
-    streams = bitio.words_to_bytes(words)
-    streams[2, int(csize[2]) - 1] = 0
-    dec = (streams, csize, on["n"], on["tlog"], fse_tables.build_dtables(on["norm"], on["tlog"])[:3])
-    cases = [dict(key="fse_encode", run=partial(fk.fse_encode_batch, *enc, **kw),
-                  plain=partial(fk.fse_encode_batch_plain, *enc, **kw), err=None),
-             dict(key="fse_decode", run=partial(fk.fse_decode_batch, *dec, max_out=S),
-                  plain=partial(fk.fse_decode_batch_plain, *dec, max_out=S),
-                  err=[False, False, True, False, False])]
+    cases = fse_cases(blocks, S, S + 64, no_endmark)
+    cases += fse_cases([generate_proba(p, COMPAT_BLOCK) for p in (80, 14)],
+                       COMPAT_BLOCK, 36000, cursor_low)
+    overflow = fse_cases(blocks[:3], S, 600, lambda st, cs: None)
+    require(int((overflow[0]["plain"]()[1] > 600).sum()) == 2,
+            "the overflow case drops no FSE payload")
+    cases += overflow
 
     hblocks = [p80, p14, p80[:S - 1], p80[100:113], p14[:517]]
     B = len(hblocks)
@@ -776,6 +833,9 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "built": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
                                 for k, v in built.items()}}), flush=True)
+    # C1 / C2 at the 64 MiB compat paths' 2048 blocks
+    print(json.dumps({"phase": "fse_occupancy", "gpu": gpu, **fse_occupancy(
+        built, MAIN_MIB * GROUP // COMPAT_BLOCK)}), flush=True)
 
     def encode_batches(p: Piece, entry: str | None = None) -> list[dict]:
         """Every encode batch of p, planned and staged as the compress

@@ -1,5 +1,6 @@
 // Staging a group's stream into shared memory with cp.async, shared by the
-// decode kernels (rans_decode.cu, rans_decode_flat.cu, turbo_fse_decode.cu).
+// decode kernels (rans_decode.cu, rans_decode_flat.cu, turbo_fse_decode.cu,
+// fse_decode.cu).
 //
 // ChunkRing is the flat-rank decodes' stream cache.  Those wires ship no
 // per-step cursors (v1, v0) or ship them but may lie about them (totals), so
@@ -32,6 +33,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+// cp_async16 only where p holds (a predicate, no branch)
+__device__ __forceinline__ void cp_async16_if(bool p, void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %0, 0;\n"
+      "\t@q cp.async.cg.shared.global [%1], [%2], 16;\n\t}\n" ::"r"(static_cast<int>(p)),
+      "r"(d), "l"(src)
+      : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -39,6 +50,12 @@ __device__ __forceinline__ void cp_async_commit() {
 // every copy this thread committed has landed
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// all but this thread's N most recent commit groups have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // n16 16-byte units from src to dst (both 16-byte aligned), spread over the

@@ -5,12 +5,16 @@ The JAX package's ops/fse_kernels.py runs each block's serial loop
 (fse_compress.c:554-611, fse_decompress.c:178-238) as a ``lax.scan`` over
 the symbol index, batched over the blocks.  Here each is a CUDA kernel:
 
-* ``fse_encode_batch`` -> csrc/fse_encode.cu, one thread a block, the two
-  interleaved state chains walked backward and the fields written forward
-  through a 64-bit bit container (the emission order is the stream order);
-* ``fse_decode_batch`` -> csrc/fse_decode.cu, one thread a block, the two
-  states read from the endMark down, one packed ``newState<<16 | nb<<8 |
-  symbol`` entry a state and step.
+* ``fse_encode_batch`` -> csrc/fse_encode.cu, up to 8 blocks a CTA with
+  their tables in shared memory: two lanes of one warp a block run the two
+  state chains over staged transforms, chunk by chunk, while the CTA's
+  other warps stage the next chunk and place the last one's fields
+  (count-then-place: a warp scan of the widths, the words stored
+  coalesced);
+* ``fse_decode_batch`` -> csrc/fse_decode.cu, up to 4 blocks a CTA with
+  their tables in shared memory (3 bytes an entry), one lane a block
+  walking both states from the endMark down through a 64-bit register
+  window over the stream, whose words cp.async stages ahead.
 
 Wire-format invariants, as the JAX kernels keep them: the 2-state
 interleave (state1 on even symbol indices), backward traversal, the
@@ -118,7 +122,8 @@ def _decode_kernel(streams_u8, csize, n_out, table_log, packed, max_out: int):
     """The decode kernel (csrc/fse_decode.cu) on one device's tensors."""
     B, S = streams_u8.shape
     dev = streams_u8.device
-    out = torch.zeros((B, max_out), dtype=torch.uint8, device=dev)
+    # the kernel writes every byte, zeros past n_out
+    out = torch.empty((B, max_out), dtype=torch.uint8, device=dev)
     err = torch.empty((B,), dtype=torch.bool, device=dev)
     st = streams_u8.contiguous()
     if st.data_ptr() % 4:           # the kernel reads the stream as u32 words
@@ -248,7 +253,8 @@ def _encode_kernel(src_u8, n, table_log, ctables, max_syms: int, out_bytes: int)
     B, S = src_u8.shape
     dev = src_u8.device
     W = (out_bytes + 3) // 4
-    words = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    # the kernel writes every word, zeros past csize
+    words = torch.empty((B, W), dtype=torch.int32, device=dev)
     csize = torch.empty((B,), dtype=torch.int32, device=dev)
     src = src_u8.contiguous()
     nn, tl, st, dfs, dnb = (t.to(torch.int32).contiguous()

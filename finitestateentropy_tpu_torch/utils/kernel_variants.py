@@ -1,20 +1,23 @@
-"""Variants of the flat-rank and v0 decode kernels, built side by side and
+"""Variants of the flat-rank, v0 and FSE kernels, built side by side and
 timed on one card:
 
     python -m finitestateentropy_tpu_torch.utils.kernel_variants [name ...]
 
-A variant is the committed source of csrc/rans_decode_flat.cu or
-csrc/turbo_fse_decode.cu with a few text substitutions: another number of
-state chains a thread, another way to exchange the warps' counts, or one
-part of the step taken out.  The last kind (``TIMING_ONLY``) computes wrong
-results: it only shows what the part costs.  Every variant is built with
-nvcc into build/kernel_variants/ (one process per variant, started
-together), launched through its C entry on the batches of chip_smoke.py's
-paths (ratio mode on 64 x 1 MiB of Proba80, the totals wire on 3 MiB, v1
-pair frames on 8 MiB, v0 frames on 16 x 1 MiB), held against the plain
-version and timed (CUDA events, mean of 20 launches, the better of two
-rounds).  Prints one JSON line: {"gpu", "ms": {"variant/case": ms},
-"exact": {"variant/case": bool}}.  Exits 1 without a CUDA device.
+A variant is the committed source of csrc/rans_decode_flat.cu,
+csrc/turbo_fse_decode.cu, csrc/fse_encode.cu or csrc/fse_decode.cu with a
+few text substitutions: another number of state chains a thread, another
+way to exchange the warps' counts, another chunk or number of blocks a
+CTA, the FSE encode's placement after its chains instead of beside them,
+or one part of the step taken out.  The last kind (``TIMING_ONLY``)
+computes wrong results: it only shows what the part costs.  Every variant
+is built with nvcc into build/kernel_variants/ (one process per variant,
+started together), launched through its C entry on the batches of
+chip_smoke.py's paths (ratio mode on 64 x 1 MiB of Proba80, the totals
+wire on 3 MiB, v1 pair frames on 8 MiB, v0 frames on 16 x 1 MiB, the FSE
+codec's 2048 blocks of 32 KiB of Proba80), held against the plain version
+and timed (CUDA events, mean of 20 launches, the better of two rounds).
+Prints one JSON line: {"gpu", "ms": {"variant/case": ms}, "exact":
+{"variant/case": bool}}.  Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from ..turbo.state import to_tensors
 from .probagen import generate_proba
 
 FLAT, V0 = "rans_decode_flat", "turbo_fse_decode"
+FSE_ENC, FSE_DEC = "fse_encode", "fse_decode"
 _CHAINS = "constexpr int kChains = {}; "
 _FLAT_EXCHANGE = """\
       const int rc = lane < kWarps ? cnt[s & 1][lane] : 0;
@@ -87,6 +91,8 @@ _FLAT_BALLOTS = """\
         bal[j] = __ballot_sync(kFull, x[j] < kRansL);
 """
 _BARRIER = "      __syncthreads();\n      // every warp is past"
+_ENC_PLACE = ("      if (k > 0) place_chunk(k - 1);\n", "")
+_ENC_ZERO = ("          words[static_cast<size_t>(b0 + p) * W + wd] = 0;", "          ;")
 
 # name -> (source, [(old, new), ...]); substitutions apply in order
 VARIANTS = {
@@ -135,9 +141,52 @@ VARIANTS = {
 """)]),
     "v0_no_barrier": (V0, [("        __syncthreads();\n        // every warp is past",
                             "        // every warp is past")]),
+    "fse_encode": (FSE_ENC, []),
+    # barrier phases: chunk k's fields placed after its chains, not beside k+1's
+    "fse_encode_phases": (FSE_ENC, [
+        _ENC_PLACE, ("      if (k + 1 < K) stage_chunk(k + 1);\n    }\n    __syncthreads();\n",
+                     "      if (k + 1 < K) stage_chunk(k + 1);\n    }\n    __syncthreads();\n"
+                     "    if (warp > 0 && k < K) place_chunk(k);\n    __syncthreads();\n")]),
+    "fse_encode_chunk64": (FSE_ENC, [("constexpr int kChunk = 128;",
+                                      "constexpr int kChunk = 64;")]),
+    "fse_encode_blocks16": (FSE_ENC, [("constexpr int kMaxBlocks = 8;",
+                                       "constexpr int kMaxBlocks = 16;")]),
+    "fse_encode_blocks4": (FSE_ENC, [("constexpr int kMaxBlocks = 8;",
+                                      "constexpr int kMaxBlocks = 4;")]),
+    "fse_encode_helpers4": (FSE_ENC, [("constexpr int kHelpers = 8;",
+                                       "constexpr int kHelpers = 4;")]),
+    # parts taken out: the placement, the zeroing, both, or every helper's
+    # work in the loop (the chains then walk chunks 0 and 1 over and over)
+    "fse_encode_no_place": (FSE_ENC, [_ENC_PLACE]),
+    "fse_encode_no_zero": (FSE_ENC, [_ENC_ZERO]),
+    "fse_encode_stage_only": (FSE_ENC, [_ENC_PLACE, _ENC_ZERO]),
+    "fse_encode_chain_alone": (FSE_ENC, [
+        ("    fetch_chunk(0);\n    stage_chunk(0);\n",
+         "    fetch_chunk(0);\n    stage_chunk(0);\n    fetch_chunk(1);\n    stage_chunk(1);\n"),
+        ("      if (k + 1 < K) fetch_chunk(k + 1);\n", ""), _ENC_PLACE, _ENC_ZERO,
+        ("      if (k + 1 < K) stage_chunk(k + 1);\n", "")]),
+    "fse_decode": (FSE_DEC, []),
+    "fse_decode_blocks8": (FSE_DEC, [("constexpr int kMaxBlocks = 4;",
+                                      "constexpr int kMaxBlocks = 8;")]),
+    "fse_decode_blocks16": (FSE_DEC, [("constexpr int kMaxBlocks = 4;",
+                                       "constexpr int kMaxBlocks = 16;")]),
+    "fse_decode_threads256": (FSE_DEC, [("constexpr int kThreads = 128;",
+                                         "constexpr int kThreads = 256;")]),
+    # every block through the first design's loop (global table, read_bits)
+    "fse_decode_global": (FSE_DEC, [("  if (!fast[lane]) {", "  if (true) {")]),
+    # the ring never refilled, or the symbols never stored
+    "fse_decode_no_refill_load": (FSE_DEC, [("      stage::cp_async16_if(p,", "      stage::cp_async16_if(false,")]),
+    "fse_decode_no_store": (FSE_DEC, [(
+        "        o128[t / kUnroll] = make_uint4(q[0], q[1], q[2], q[3]);",
+        "        if ((q[0] & q[1] & q[2] & q[3]) == ~0u) o128[0] = make_uint4(q[0], 0, 0, 0);")]),
 }
 TIMING_ONLY = ("flat_no_barrier", "flat_no_exchange", "flat_no_ring",
-               "flat_no_table", "v0_no_barrier")
+               "flat_no_table", "v0_no_barrier", "fse_encode_no_place",
+               "fse_encode_no_zero", "fse_encode_stage_only", "fse_encode_chain_alone",
+               "fse_decode_no_refill_load", "fse_decode_no_store")
+# the cases each source is timed on
+CASES_OF = {FLAT: ("v1_byte_64", "totals_3", "v1_pair_8"), V0: ("v0_16",),
+            FSE_ENC: ("fse_p80_2048",), FSE_DEC: ("fse_p80_2048", "fse_codec_2048")}
 
 
 def variant_source(name: str) -> str:
@@ -171,8 +220,44 @@ def build(names) -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def _cases() -> dict:
-    """{case: (launch arguments, the plain version's outputs)} on the card."""
+def _fse_cases(corpus: bytes) -> dict:
+    """{case: {source: (launch arguments, the plain version's outputs)}} of
+    the FSE codec's batch of 64 MiB in 32 KiB blocks, staged as the codec
+    stages it: fse_p80_2048 the encode, and the decode of its words;
+    fse_codec_2048 the decode of the codec's compressed blocks, staged by
+    its decode_inputs (as chip_smoke.py's fse path stages them)."""
+    from ..models.fse_codec import FseTpuCodec
+    from ..ops import bitio, fse_kernels, fse_tables
+
+    codec = FseTpuCodec()
+    blocks = [corpus[i:i + codec.block_size] for i in range(0, len(corpus), codec.block_size)]
+    e = codec.encode_inputs(codec.encode_plan(blocks)[1])
+    t = {k: torch.from_numpy(v).to("cuda") for k, v in e.items() if k in ("src", "n", "norm", "tlog")}
+    ct = [c.contiguous() for c in fse_tables.build_ctables(t["norm"], t["tlog"])]
+    enc = (t["src"], t["n"], t["tlog"], ct)
+    words, csize = fse_kernels.fse_encode_batch_plain(*enc, max_syms=e["max_syms"],
+                                                      out_bytes=e["out_bytes"])
+    streams = bitio.words_to_bytes(words)
+    packed = fse_kernels.pack_dtable(*fse_tables.build_dtables(t["norm"], t["tlog"])[:3])
+    want_dec = fse_kernels.fse_decode_batch_plain(
+        streams, csize, t["n"], t["tlog"], fse_tables.build_dtables(t["norm"], t["tlog"])[:3],
+        max_out=e["max_syms"])
+    items = [(r.data, len(b)) for r, b in zip(codec.compress_blocks(blocks), blocks)]
+    d = codec.decode_inputs(items)
+    u = {k: torch.from_numpy(d[k]).to("cuda") for k in ("streams", "csize", "n_out", "norm", "tlog")}
+    dt = fse_tables.build_dtables(u["norm"], u["tlog"])[:3]
+    dec = (u["streams"], u["csize"], u["n_out"], u["tlog"])
+    return {"fse_p80_2048": {
+        FSE_ENC: ((enc, e["max_syms"], e["out_bytes"]), (words, csize)),
+        FSE_DEC: ((streams, csize, t["n"], t["tlog"], packed, e["max_syms"]), want_dec)},
+        "fse_codec_2048": {FSE_DEC: ((*dec, fse_kernels.pack_dtable(*dt), d["max_out"]),
+                                     fse_kernels.fse_decode_batch_plain(*dec, dt,
+                                                                        max_out=d["max_out"]))}}
+
+
+def _cases(srcs) -> dict:
+    """{case: (launch arguments, the plain version's outputs)} on the card
+    for the sources srcs; the FSE case by source."""
     group = 1 << 20
     corpus = generate_proba(80, 64 * group)
 
@@ -188,15 +273,21 @@ def _cases() -> dict:
                                 tlog, mode, cur, None, None if cur is not None else ins["csize_hw"])
         return (ins, cur, t4, tlog, mode), want[:2]
 
-    cases = {"v1_byte_64": flat_case(corpus, "byte", steptots=False),
-             "totals_3": flat_case(corpus[:3 * group], "byte", totals_only=True),
-             "v1_pair_8": flat_case(corpus[:8 * group], "pair", pair=1, steptots=False)}
-    cs, tbl, init, st, t4, wrows = v0.stage_groups(
-        [parse_group(turbo_fse_compress(corpus[i * group:(i + 1) * group]))[0]
-         for i in range(16)])
-    ins = list(to_tensors("cuda", csize_bits=cs, tables=tbl, init_states=init,
-                          streams=st).values())
-    cases["v0_16"] = ((ins, t4), v0.turbo_fse_decode_plain(*ins, t4, wrows))
+    cases = {}
+    if FLAT in srcs:
+        cases = {"v1_byte_64": flat_case(corpus, "byte", steptots=False),
+                 "totals_3": flat_case(corpus[:3 * group], "byte", totals_only=True),
+                 "v1_pair_8": flat_case(corpus[:8 * group], "pair", pair=1,
+                                        steptots=False)}
+    if V0 in srcs:
+        cs, tbl, init, st, t4, wrows = v0.stage_groups(
+            [parse_group(turbo_fse_compress(corpus[i * group:(i + 1) * group]))[0]
+             for i in range(16)])
+        ins = list(to_tensors("cuda", csize_bits=cs, tables=tbl, init_states=init,
+                              streams=st).values())
+        cases["v0_16"] = ((ins, t4), v0.turbo_fse_decode_plain(*ins, t4, wrows))
+    if {FSE_ENC, FSE_DEC} & set(srcs):
+        cases.update(_fse_cases(corpus))
     return cases
 
 
@@ -207,7 +298,24 @@ def _launcher(lib, src: str, args):
     fn.argtypes = rk._SIGS[entry][1]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
-    if src == V0:
+    if src == FSE_ENC:
+        (s_u8, n, tl, (st, dfs, dnb)), max_syms, out_bytes = args
+        B, S = s_u8.shape
+        W = (out_bytes + 3) // 4
+        outs = (torch.empty((B, W), dtype=torch.int32, device="cuda"),
+                torch.empty((B,), dtype=torch.int32, device="cuda"))
+        call = (s_u8.data_ptr(), S, n.data_ptr(), tl.data_ptr(), st.data_ptr(),
+                st.shape[1], dfs.data_ptr(), dnb.data_ptr(), dfs.shape[1],
+                outs[0].data_ptr(), W, outs[1].data_ptr(), B, max_syms, stream)
+    elif src == FSE_DEC:
+        streams, csize, n, tl, packed, max_out = args
+        B, S = streams.shape
+        outs = (torch.empty((B, max_out), dtype=torch.uint8, device="cuda"),
+                torch.empty((B,), dtype=torch.bool, device="cuda"))
+        call = (streams.data_ptr(), S, csize.data_ptr(), n.data_ptr(), tl.data_ptr(),
+                packed.data_ptr(), packed.shape[1], outs[0].data_ptr(), max_out,
+                outs[1].data_ptr(), B, stream)
+    elif src == V0:
         (cs, tbl, init, st), t4 = args
         G = tbl.shape[0]
         outs = (torch.empty((G, t4 * 8, 128), dtype=torch.int32, device="cuda"),
@@ -252,14 +360,13 @@ def main(argv: list[str]) -> int:
         return 1
     names = argv or list(VARIANTS)
     libs = build(names)
-    cases = _cases()
+    cases = _cases({VARIANTS[name][0] for name in names})
     ms, exact = {}, {}
     for _round in range(2):
         for name in names:
             src = VARIANTS[name][0]
-            for case, (args, want) in cases.items():
-                if (case == "v0_16") != (src == V0):
-                    continue
+            for case in CASES_OF[src]:
+                args, want = cases[case][src] if case.startswith("fse_") else cases[case]
                 launch, outs = _launcher(libs[name], src, args)
                 key = f"{name}/{case}"
                 t = _ms(launch)

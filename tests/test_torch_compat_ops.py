@@ -28,6 +28,7 @@ from finitestateentropy_tpu_torch.utils import generate_proba
 
 S = 4096                 # block size of these tests (block_size_id 2)
 OUT_BYTES = 4096 + 64
+FULL = 1 << 15           # the compat codecs' block size (block_size_id 5)
 P80, P14, P02 = (generate_proba(p, 3 * S) for p in (80, 14, 2))
 
 
@@ -69,7 +70,8 @@ FSE_BLOCKS = {   # name -> (block, tableLog or None for the codec's)
     "p80": (P80[:S], None), "p14": (P14[:S], None), "p02": (P02[:S], None),
     "alpha8_tlog5": (_small_alphabet_block(), 5), "p80_tlog12": (P80[S:2 * S], 12),
     "escape": (_escape_block(), None), "n2": (b"\x05\x09", None),
-    "n3": (b"\x01\x02\x01", None), "ragged": (P14[:1001], None)}
+    "n3": (b"\x01\x02\x01", None), "ragged": (P14[:1001], None),
+    "p80_32k": (generate_proba(80, FULL), None), "p14_32k": (generate_proba(14, FULL), None)}
 
 
 def _norm_of(block: bytes, tlog=None):
@@ -80,9 +82,10 @@ def _norm_of(block: bytes, tlog=None):
     return fse_normalize_count(tl, count[: max_sv + 1], len(block), max_sv)
 
 
-def _fse_inputs(names):
+def _fse_inputs(names, width: int = S):
     B = len(names)
-    src = np.zeros((B, S), np.uint8)
+    width = max(width, *(len(FSE_BLOCKS[name][0]) for name in names))
+    src = np.zeros((B, width), np.uint8)
     norms = np.zeros((B, 256), np.int32)
     tlogs = np.zeros(B, np.int32)
     ns = np.zeros(B, np.int32)
@@ -95,12 +98,14 @@ def _fse_inputs(names):
     return src, ns, norms, tlogs
 
 
-def _fse_streams(words, csize):
-    """Encoded words -> the decode's zero-padded [B, S'] streams (S' a
-    multiple of 4 past the bound), csize."""
-    streams = np.zeros((len(csize), S + 96), np.uint8)
+def _fse_streams(words, csize, width: int = S, pad: int = 96):
+    """Encoded words -> the decode's zero-padded [B, width + pad] streams
+    (a multiple of 4 past the bound), csize; a payload past the words is
+    cut there (its tail was dropped)."""
+    streams = np.zeros((len(csize), width + pad), np.uint8)
     raw = np.asarray(words).astype("<u4").view(np.uint8).reshape(len(csize), -1)
     for k, c in enumerate(csize):
+        c = min(int(c), raw.shape[1])
         streams[k, :c] = raw[k, :c]
     return streams
 
@@ -265,34 +270,58 @@ def test_fse_dtables_equal_host_twin():
 
 
 FSE_NAMES = ["p80", "p14", "p02", "p80_tlog12", "escape", "n2", "n3", "ragged"]
+# name -> (blocks, their row width = max_syms = max_out, out_bytes)
+FSE_BATCHES = {
+    "small": (FSE_NAMES, S, OUT_BYTES),
+    # whole blocks of the codecs' size: a chain of 16 Ki steps a state
+    "full_32k": (["p80_32k", "p14_32k"], FULL, 36000),
+    # payloads past out_bytes: the words past the 150th are dropped and
+    # csize still counts them (p80 fits, p14 and p02 do not)
+    "overflow": (["p80", "p14", "p02", "n3"], S, 600),
+}
+FSE_CASES = ("clean", "corrupt", "cursor_low")
 
 
-@pytest.fixture(scope="module")
-def fse_jax():
-    """JAX's encode and decode of the FSE batch (a bit flipped in block 1,
-    block 2's endMark byte zeroed, in a second decode)."""
+def _fse_decode_case(streams, csize, case):
+    """The decode's streams and csize in a case: "corrupt" flips a bit of
+    block 1 and zeroes the endMark byte of block 2 (of the last block in a
+    batch of two); "cursor_low" cuts block 0's csize to an eighth, so its
+    cursor falls below bit 0 long before the last symbol."""
+    st, cs = streams.copy(), csize.copy()
+    if case == "corrupt":
+        st[1, cs[1] // 2] ^= 0x10
+        z = min(2, len(cs) - 1)
+        st[z, cs[z] - 1] = 0
+    elif case == "cursor_low":
+        cs[0] = max(cs[0] // 8, 1)
+    return st, cs
+
+
+@pytest.fixture(scope="module", params=list(FSE_BATCHES))
+def fse_jax(request):
+    """JAX's encode of an FSE batch and its decode in each case."""
     import jax.numpy as jnp
 
     from finitestateentropy_tpu.ops import fse_kernels as j_k, fse_tables as j_t
 
-    src, ns, norms, tlogs = _fse_inputs(FSE_NAMES)
+    names, width, out_bytes = FSE_BATCHES[request.param]
+    src, ns, norms, tlogs = _fse_inputs(names, width)
     ct = j_t.build_ctables(jnp.asarray(norms), jnp.asarray(tlogs))
     words, csize = j_k.fse_encode_batch(jnp.asarray(src), jnp.asarray(ns),
-                                        jnp.asarray(tlogs), ct, max_syms=S,
-                                        out_bytes=OUT_BYTES)
+                                        jnp.asarray(tlogs), ct, max_syms=width,
+                                        out_bytes=out_bytes)
     words, csize = np.asarray(words), np.asarray(csize)
-    streams = _fse_streams(words, csize)
-    bad = streams.copy()
-    bad[1, csize[1] // 2] ^= 0x10
-    bad[2, csize[2] - 1] = 0
+    streams = _fse_streams(words, csize, width)
     dt = j_t.build_dtables(jnp.asarray(norms), jnp.asarray(tlogs))[:3]
     dec = {}
-    for name, st in (("clean", streams), ("corrupt", bad)):
-        out, err = j_k.fse_decode_batch(jnp.asarray(st), jnp.asarray(csize),
+    for case in FSE_CASES:
+        st, cs = _fse_decode_case(streams, csize, case)
+        out, err = j_k.fse_decode_batch(jnp.asarray(st), jnp.asarray(cs),
                                         jnp.asarray(ns), jnp.asarray(tlogs), dt,
-                                        max_out=S)
-        dec[name] = (st, np.asarray(out), np.asarray(err))
-    return dict(src=src, ns=ns, norms=norms, tlogs=tlogs, words=words, csize=csize,
+                                        max_out=width)
+        dec[case] = (st, cs, np.asarray(out), np.asarray(err))
+    return dict(batch=request.param, names=names, width=width, out_bytes=out_bytes,
+                src=src, ns=ns, norms=norms, tlogs=tlogs, words=words, csize=csize,
                 dec=dec)
 
 
@@ -300,28 +329,37 @@ def test_fse_encode_plain_equals_jax(fse_jax):
     j = fse_jax
     ct = fse_tables.build_ctables(_t(j["norms"]), _t(j["tlogs"]))
     words, csize = fse_kernels.fse_encode_batch(_t(j["src"]), _t(j["ns"]), _t(j["tlogs"]),
-                                                ct, max_syms=S, out_bytes=OUT_BYTES)
+                                                ct, max_syms=j["width"],
+                                                out_bytes=j["out_bytes"])
     assert np.array_equal(_np(words).view(np.uint32), j["words"])
     assert np.array_equal(_np(csize), j["csize"])
-    # n = 2: only the two flushes and the endMark
-    n2 = FSE_NAMES.index("n2")
-    assert j["csize"][n2] == (2 * j["tlogs"][n2] + 1 + 7) // 8
+    if "n2" in j["names"]:      # n = 2: only the two flushes and the endMark
+        n2 = j["names"].index("n2")
+        assert j["csize"][n2] == (2 * j["tlogs"][n2] + 1 + 7) // 8
+    if j["batch"] == "overflow":
+        assert (j["csize"] > 4 * j["words"].shape[1]).sum() == 2
+    if j["batch"] == "full_32k":
+        assert (j["ns"] == FULL).all() and (j["csize"] > 4 * 128 * 4).all()
 
 
-@pytest.mark.parametrize("case", ["clean", "corrupt"])
+@pytest.mark.parametrize("case", FSE_CASES)
 def test_fse_decode_plain_equals_jax(fse_jax, case):
     j = fse_jax
-    st, want_out, want_err = j["dec"][case]
+    st, cs, want_out, want_err = j["dec"][case]
     dt = fse_tables.build_dtables(_t(j["norms"]), _t(j["tlogs"]))[:3]
-    out, err = fse_kernels.fse_decode_batch(_t(st), _t(j["csize"]), _t(j["ns"]),
-                                            _t(j["tlogs"]), dt, max_out=S)
+    out, err = fse_kernels.fse_decode_batch(_t(st), _t(cs), _t(j["ns"]),
+                                            _t(j["tlogs"]), dt, max_out=j["width"])
     assert np.array_equal(_np(out), want_out) and np.array_equal(_np(err), want_err)
+    whole = j["csize"] <= 4 * j["words"].shape[1]       # no word dropped
     if case == "clean":
-        assert not want_err.any()
-        for k, n in enumerate(j["ns"]):
+        assert not want_err[whole].any() and want_err[~whole].all()
+        for k in np.flatnonzero(whole):
+            n = j["ns"][k]
             assert np.array_equal(want_out[k, :n], j["src"][k, :n])
-    else:       # a flipped bit may go unseen; a missing endMark may not
-        assert not want_err[0] and want_err[2]
+    elif case == "corrupt":     # a flipped bit may go unseen; a missing endMark may not
+        assert not want_err[0] and want_err[min(2, len(cs) - 1)]
+    else:
+        assert want_err[0] and not want_err[1:][whole[1:]].any()
 
 
 def test_fse_decode_n_out_at_most_2_never_checks():
@@ -507,27 +545,105 @@ def test_huf_x2_lookups_follow_the_codes():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.gpu
-def test_cuda_fse_kernels_equal_plain(cuda):
-    src, ns, norms, tlogs = _fse_inputs(FSE_NAMES)
-    rk.reset_launches()
-    outs = {}
-    for dev in ("cpu", cuda):
-        ct = fse_tables.build_ctables(_t(norms, dev), _t(tlogs, dev))
-        words, csize = fse_kernels.fse_encode_batch(_t(src, dev), _t(ns, dev),
-                                                    _t(tlogs, dev), ct, max_syms=S,
-                                                    out_bytes=OUT_BYTES)
-        streams = _fse_streams(_np(words).view(np.uint32), _np(csize))
-        streams[1, _np(csize)[1] // 2] ^= 0x10
-        streams[2, _np(csize)[2] - 1] = 0
-        dt = fse_tables.build_dtables(_t(norms, dev), _t(tlogs, dev))[:3]
-        out, err = fse_kernels.fse_decode_batch(_t(streams, dev), csize, _t(ns, dev),
-                                                _t(tlogs, dev), dt, max_out=S)
-        outs[str(dev)] = [_np(x) for x in (words, csize, out, err)]
+def _fse_wave(B: int, width: int):
+    """B blocks of `width` bytes, rotations of Proba80, 14 and 2 in turn,
+    the last one cut to a third: a frame's batch at the codecs' shapes."""
+    bases = [np.frombuffer(generate_proba(p, width), np.uint8) for p in (80, 14, 2)]
+    norm_tl = [_norm_of(b.tobytes()) for b in bases]
+    src = np.zeros((B, width), np.uint8)
+    norms = np.zeros((B, 256), np.int32)
+    tlogs, ns = np.zeros(B, np.int32), np.full(B, width, np.int32)
+    for k in range(B):
+        src[k] = np.roll(bases[k % 3], 7919 * k)
+        (norm, tlogs[k]), ns[k] = norm_tl[k % 3], width if k < B - 1 else width // 3
+        if k == B - 1:
+            src[k, ns[k]:] = 0
+            norm, tlogs[k] = _norm_of(src[k, : ns[k]].tobytes())
+        norms[k, : len(norm)] = norm
+    return src, ns, norms, tlogs
+
+
+def _fse_gpu_batch(batch: str):
+    """(src, n, norm, tlog, width, out_bytes) of a GPU test batch."""
+    if batch in FSE_BATCHES:
+        names, width, out_bytes = FSE_BATCHES[batch]
+        return (*_fse_inputs(names, width), width, out_bytes)
+    if batch == "full_32k_rows8":   # decode rows 8-byte aligned, as the codec stages them
+        return _fse_gpu_batch("full_32k")
+    if batch == "wave_2048":        # 64 MiB in 32 KiB blocks: one wave of CTAs
+        return (*_fse_wave(2048, FULL), FULL, 36000)
+    # ragged_301: 301 blocks, not a multiple of the blocks a CTA takes
+    names = [FSE_NAMES[k % len(FSE_NAMES)] for k in range(300)] + ["alpha8_tlog5"]
+    return (*_fse_inputs(names), S, OUT_BYTES)
+
+
+def _cuda_fse_vs_plain(src, ns, norms, tlogs, width, out_bytes, dev, ctables=None,
+                       dtables=None, pad=96):
+    """The kernels against their plain versions on the card, the encode and
+    the decode of its output (rows of width + pad bytes) in each of
+    FSE_CASES; returns the encode."""
+    ct = ctables or fse_tables.build_ctables(_t(norms, dev), _t(tlogs, dev))
+    enc = (_t(src, dev), _t(ns, dev), _t(tlogs, dev), ct)
+    kw = dict(max_syms=width, out_bytes=out_bytes)
+    words, csize = fse_kernels.fse_encode_batch(*enc, **kw)
+    want = fse_kernels.fse_encode_batch_plain(*enc, **kw)
     torch.cuda.synchronize()
-    assert all(np.array_equal(a, b) for a, b in zip(outs["cpu"], outs["cuda"]))
-    assert outs["cuda"][3][2] and not outs["cuda"][3][0]
-    assert rk.launches["fse_encode"] == 1 and rk.launches["fse_decode"] == 1
+    assert torch.equal(words, want[0]) and torch.equal(csize, want[1])
+    streams = _fse_streams(_np(words).view(np.uint32), _np(csize), width, pad)
+    dt = dtables or fse_tables.build_dtables(_t(norms, dev), _t(tlogs, dev))[:3]
+    for case in FSE_CASES:
+        st, cs = _fse_decode_case(streams, _np(csize), case)
+        dec = (_t(st, dev), _t(cs, dev), _t(ns, dev), _t(tlogs, dev), dt)
+        out, err = fse_kernels.fse_decode_batch(*dec, max_out=width)
+        want = fse_kernels.fse_decode_batch_plain(*dec, max_out=width)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want[0]) and torch.equal(err, want[1]), case
+        whole = _np(csize) <= 4 * words.shape[1]
+        if case == "clean":
+            assert not _np(err)[whole].any()
+        elif case == "corrupt":
+            assert _np(err)[min(2, len(cs) - 1)] and not _np(err)[0]
+    return words, csize
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [*FSE_BATCHES, "full_32k_rows8", "wave_2048",
+                                   "ragged_301"])
+def test_cuda_fse_kernels_equal_plain(cuda, batch):
+    """Small and full blocks, tableLog 5 and 12, n = 2 and 3, payloads past
+    out_bytes, corrupt streams and a cursor below 0 long before the end;
+    decode rows that start 8 bytes into a 16-byte unit; 2048 blocks of 32
+    KiB (one wave), and 301 blocks (a ragged last CTA)."""
+    rk.reset_launches()
+    _cuda_fse_vs_plain(*_fse_gpu_batch(batch), cuda,
+                       pad=104 if batch.endswith("rows8") else 96)
+    assert {k: v for k, v in rk.launches.items() if v} == {
+        "fse_encode": 1, "fse_decode": len(FSE_CASES)}
+
+
+@pytest.mark.gpu
+def test_cuda_fse_kernels_global_table_path(cuda):
+    """A table outside the kernels' shared form sends its CTA's chains to
+    the table in global memory, with the same output: a state of the encode
+    table outside [2^tableLog, 2^(tableLog+1)), a decode entry of 20 bits,
+    both in the cells of symbol 9, which the block gives a count but never
+    uses (so the output equals the unaltered tables' too)."""
+    src, ns, norms, tlogs = _fse_inputs(FSE_NAMES + ["alpha8_tlog5"])
+    k = len(FSE_NAMES)
+    top = int(np.argmax(norms[k]))
+    norms[k, top] -= 1
+    norms[k, 9] = 1
+    args = (src, ns, norms, tlogs, S, OUT_BYTES, cuda)
+    base = _cuda_fse_vs_plain(*args)
+    st, dfs, dnb = fse_tables.build_ctables(_t(norms, cuda), _t(tlogs, cuda))
+    slots = np.where(norms[k] == -1, 1, np.maximum(norms[k], 0))
+    st[k, int(np.cumsum(slots)[9] - slots[9])] = 3 << int(tlogs[k])
+    new_state, symbol, nb_bits = fse_tables.build_dtables(_t(norms, cuda), _t(tlogs, cuda))[:3]
+    nb_bits[k][symbol[k] == 9] = 20
+    assert (symbol[k] == 9).sum() == 1
+    got = _cuda_fse_vs_plain(*args, ctables=(st, dfs, dnb),
+                             dtables=(new_state, symbol, nb_bits))
+    assert all(torch.equal(a, b) for a, b in zip(got, base))
 
 
 @pytest.mark.gpu
