@@ -440,24 +440,25 @@ def run_cli(argv: list[str]) -> dict:
     return json.loads(r.stderr.strip().splitlines()[-1])
 
 
-def fse_occupancy(built: dict, blocks: int) -> dict:
-    """C1's and C2's launch shape for `blocks` blocks (fse_*_config: blocks
-    a CTA, threads, dynamic shared bytes, the CTAs an SM can hold by
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor, CTAs, SMs), whether the
-    CTAs fit the card at once, and the kernels' registers as ptxas gave
-    them."""
+def occupancy(built: dict, blocks: int, kernels: dict) -> dict:
+    """The launch shape of each compat kernel in `kernels` ({source:
+    argument of its <source>_config C entry}) for `blocks` blocks: blocks a
+    CTA, threads, dynamic (the Huff0 encode: static) shared bytes, the CTAs
+    an SM can hold by cudaOccupancyMaxActiveBlocksPerMultiprocessor, CTAs,
+    SMs; whether the CTAs fit the card at once, and the kernels' registers
+    as ptxas gave them."""
     import re
 
     from finitestateentropy_tpu_torch.turbo._build import load
 
     out = {"blocks": blocks}
-    keys = ("blocks_per_cta", "threads", "dynamic_smem_bytes", "ctas_per_sm", "ctas", "sms")
-    for name in ("fse_encode", "fse_decode"):
+    keys = ("blocks_per_cta", "threads", "smem_bytes", "ctas_per_sm", "ctas", "sms")
+    for name, arg in kernels.items():
         fn = getattr(load(name), f"{name}_config")
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         cfg = (ctypes.c_int * len(keys))()
-        rc = fn(blocks, cfg)
+        rc = fn(arg, cfg)
         require(rc == 0 and cfg[3] >= 1, f"{name}_config: cudaError_t {rc}, {list(cfg)}")
         d = dict(zip(keys, cfg))
         ptxas = built.get(name, {}).get("ptxas", [])
@@ -673,7 +674,9 @@ def compat_small_cases() -> list[dict]:
     C1 / C2 on two whole 32 KiB blocks (Proba80, Proba14; the second
     decoded from an eighth of its stream, so its cursor falls below bit 0
     long before the end) and on 4 KiB blocks whose payloads run past a
-    600-byte buffer (the words past it dropped, csize counting them):
+    600-byte buffer (the words past it dropped, csize counting them); C3-C5
+    on two whole 32 KiB blocks (Proba80, Proba14), and the Huff0 decodes
+    with the streams of two blocks on different X1 tables or tableLogs:
     {key, run, plain, err (the flags the decode must give, or None)}."""
     from finitestateentropy_tpu_torch.ops import bitio, fse_kernels as fk, fse_tables
     from finitestateentropy_tpu_torch.ops import huf_kernels as hk
@@ -737,45 +740,69 @@ def compat_small_cases() -> list[dict]:
             "the overflow case drops no FSE payload")
     cases += overflow
 
+    def huf_cases(hblocks, S, spoil):
+        """The Huff0 encode of hblocks in rows of S bytes, and the X1 and X2
+        decodes of its output; spoil(streams, sizes, tables) alters the
+        decodes' inputs in place (tables: the X1 [tlog, byte, nb] a stream)
+        and returns the flags they must give, or None."""
+        B = len(hblocks)
+        hsrc, hn = np.zeros((B, S), np.uint8), np.zeros(B, np.int32)
+        val, nb = np.zeros((B, 256), np.int32), np.zeros((B, 256), np.int32)
+        weights, tls = np.zeros((B, 256), np.int32), np.zeros(B, np.int32)
+        x2 = np.zeros((B, 4096), np.int32)
+        x2_tl = np.zeros(B, np.int32)
+        for k, b in enumerate(hblocks):
+            count, max_sv, _ = hist_count(b)
+            table = huf_build_ctable(count, max_sv, fse_optimal_table_log(
+                11, len(b), max_sv, minus=1, max_allowed=12))
+            header = huf_write_ctable(table, max_sv)
+            w, _rs, _nsym, tls[k], _used = huf_read_stats(header)
+            weights[k, : len(w)] = np.frombuffer(w, np.uint8)
+            dt2 = huf_read_dtable_x2(header)[0]
+            x2[k], x2_tl[k] = hk.pack_dtable_x2(dt2), dt2.table_log
+            hsrc[k, : len(b)], hn[k] = np.frombuffer(b, np.uint8), len(b)
+            val[k, : max_sv + 1], nb[k, : max_sv + 1] = table.val, table.nb_bits
+        henc = tuple(torch.from_numpy(a).to(DEV) for a in (hsrc, hn, val, nb)) + (S, S // 4 + 64)
+        hwords, sizes = hk.huf_encode_4x_batch_plain(*henc)
+        hstreams = bitio.words_to_bytes(hwords.view(4 * B, -1))
+        sizes = sizes.view(-1)
+        seg = (torch.from_numpy(hn).long() + 3) // 4
+        nout = torch.stack([seg, seg, seg, torch.from_numpy(hn).long() - 3 * seg], 1).view(-1)
+        bt, nt = hk.build_dtables_x1(torch.from_numpy(weights).to(DEV),
+                                     torch.from_numpy(tls).to(DEV))
+        tables = [torch.from_numpy(np.repeat(tls, 4)).to(DEV), bt.repeat_interleave(4, 0),
+                  nt.repeat_interleave(4, 0)]
+        flags = spoil(hstreams, sizes, tables)
+        head = (hstreams, sizes, nout.to(torch.int32).to(DEV))
+        x1 = (*head, tables[0], (tables[1], tables[2]), S // 4)
+        x2a = (*head, torch.from_numpy(np.repeat(x2_tl, 4)).to(DEV),
+               torch.from_numpy(np.repeat(x2, 4, axis=0)).to(DEV), S // 4)
+        return [
+            dict(key="huf_encode_4x", run=partial(hk.huf_encode_4x_batch, *henc),
+                 plain=partial(hk.huf_encode_4x_batch_plain, *henc), err=None),
+            dict(key="huf_decode_4x:x1", run=partial(hk.huf_decode_4x1_batch, *x1),
+                 plain=partial(hk.huf_decode_4x1_batch_plain, *x1), err=flags),
+            dict(key="huf_decode_4x:x2", run=partial(hk.huf_decode_4x2_batch, *x2a),
+                 plain=partial(hk.huf_decode_4x2_batch_plain, *x2a), err=flags)]
+
+    def huf_no_endmark(streams, sizes, tables):
+        streams[8, int(sizes[8]) - 1] = 0
+        return [r == 8 for r in range(streams.shape[0])]
+
+    def huf_mixed_tables(streams, sizes, tables):
+        """Block 1's stream 2 decodes with block 0's X1 table, block 3's
+        stream 1 with a tableLog one lower: those blocks leave the X1
+        kernel's shared table for its global-table loop."""
+        tables[1][6], tables[2][6] = tables[1][0], tables[2][0]
+        tables[0][13] -= 1
+        return None
+
     hblocks = [p80, p14, p80[:S - 1], p80[100:113], p14[:517]]
-    B = len(hblocks)
-    hsrc, hn = np.zeros((B, S), np.uint8), np.zeros(B, np.int32)
-    val, nb = np.zeros((B, 256), np.int32), np.zeros((B, 256), np.int32)
-    weights, tls = np.zeros((B, 256), np.int32), np.zeros(B, np.int32)
-    x2 = np.zeros((B, 4096), np.int32)
-    x2_tl = np.zeros(B, np.int32)
-    for k, b in enumerate(hblocks):
-        count, max_sv, _ = hist_count(b)
-        table = huf_build_ctable(count, max_sv, fse_optimal_table_log(
-            11, len(b), max_sv, minus=1, max_allowed=12))
-        header = huf_write_ctable(table, max_sv)
-        w, _rs, _nsym, tls[k], _used = huf_read_stats(header)
-        weights[k, : len(w)] = np.frombuffer(w, np.uint8)
-        dt2 = huf_read_dtable_x2(header)[0]
-        x2[k], x2_tl[k] = hk.pack_dtable_x2(dt2), dt2.table_log
-        hsrc[k, : len(b)], hn[k] = np.frombuffer(b, np.uint8), len(b)
-        val[k, : max_sv + 1], nb[k, : max_sv + 1] = table.val, table.nb_bits
-    henc = tuple(torch.from_numpy(a).to(DEV) for a in (hsrc, hn, val, nb)) + (S, S // 4 + 64)
-    hwords, sizes = hk.huf_encode_4x_batch_plain(*henc)
-    hstreams = bitio.words_to_bytes(hwords.view(4 * B, -1))
-    sizes = sizes.view(-1)
-    hstreams[8, int(sizes[8]) - 1] = 0
-    seg = (torch.from_numpy(hn).long() + 3) // 4
-    nout = torch.stack([seg, seg, seg, torch.from_numpy(hn).long() - 3 * seg], 1).view(-1)
-    head = (hstreams, sizes, nout.to(torch.int32).to(DEV))
-    bt, nt = hk.build_dtables_x1(torch.from_numpy(weights).to(DEV), torch.from_numpy(tls).to(DEV))
-    x1 = (*head, torch.from_numpy(np.repeat(tls, 4)).to(DEV),
-          (bt.repeat_interleave(4, 0), nt.repeat_interleave(4, 0)), S // 4)
-    x2a = (*head, torch.from_numpy(np.repeat(x2_tl, 4)).to(DEV),
-           torch.from_numpy(np.repeat(x2, 4, axis=0)).to(DEV), S // 4)
-    flags = [r == 8 for r in range(4 * B)]
-    return cases + [
-        dict(key="huf_encode_4x", run=partial(hk.huf_encode_4x_batch, *henc),
-             plain=partial(hk.huf_encode_4x_batch_plain, *henc), err=None),
-        dict(key="huf_decode_4x:x1", run=partial(hk.huf_decode_4x1_batch, *x1),
-             plain=partial(hk.huf_decode_4x1_batch_plain, *x1), err=flags),
-        dict(key="huf_decode_4x:x2", run=partial(hk.huf_decode_4x2_batch, *x2a),
-             plain=partial(hk.huf_decode_4x2_batch_plain, *x2a), err=flags)]
+    cases += huf_cases(hblocks, S, huf_no_endmark)
+    cases += huf_cases([generate_proba(p, COMPAT_BLOCK) for p in (80, 14)], COMPAT_BLOCK,
+                       lambda st, cs, t: [False] * 8)
+    cases += [c for c in huf_cases(hblocks, S, huf_mixed_tables) if c["key"] == "huf_decode_4x:x1"]
+    return cases
 
 
 def main() -> int:
@@ -833,9 +860,13 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "built": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
                                 for k, v in built.items()}}), flush=True)
-    # C1 / C2 at the 64 MiB compat paths' 2048 blocks
-    print(json.dumps({"phase": "fse_occupancy", "gpu": gpu, **fse_occupancy(
-        built, MAIN_MIB * GROUP // COMPAT_BLOCK)}), flush=True)
+    # C1 / C2 and C3 / C4 at the 64 MiB compat paths' 2048 blocks (the X1
+    # decode's config takes its rows, four a block)
+    nblk = MAIN_MIB * GROUP // COMPAT_BLOCK
+    print(json.dumps({"phase": "fse_occupancy", "gpu": gpu, **occupancy(
+        built, nblk, {"fse_encode": nblk, "fse_decode": nblk})}), flush=True)
+    print(json.dumps({"phase": "huf_occupancy", "gpu": gpu, **occupancy(
+        built, nblk, {"huf_encode": nblk, "huf_decode": 4 * nblk})}), flush=True)
 
     def encode_batches(p: Piece, entry: str | None = None) -> list[dict]:
         """Every encode batch of p, planned and staged as the compress

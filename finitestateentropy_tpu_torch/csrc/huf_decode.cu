@@ -22,41 +22,89 @@
 // run.  Table indices clamp into the table and stream reads into the row
 // (compat_bits.cuh), so a corrupt stream gives the plain version's bytes.
 //
-// The design.  One thread a stream: the chain is serial by nature (the
-// next index is known only once the entry's nbBits is).  The tables are
-// read through the read-only path, one row a stream as the JAX layout has
-// them (each block's table repeated for its four streams); the output
-// bytes are stored one (or two) at a time, and the wrapper zero-fills the
-// rows.
+// Mode x1, the design.  The codec repeats each block's table for its four
+// streams, so a CTA stages one table a block into shared memory, as u16
+// entries (nbBits + 1) | byte << 8 (8 KiB at tableLog 12), and runs the
+// chains of up to 16 blocks, a lane a stream, 16 streams a warp (the
+// streams of a CTA are consecutive rows): 2048 blocks of 32 KiB are one
+// wave (128 CTAs, one an SM, four chain warps each).  Each warp stages one
+// block: it copies the first row's live entries (2^dtLog) with 16-byte
+// loads and checks that the other three rows hold the same entries and
+// dtLog.  A block whose rows differ, whose dtLog lies outside [0, 12] or
+// above log2(T), or with an nbBits above 16 (never one build_dtables_x1
+// gives) runs the first design's loop over the global tables.  The stream
+// is read through a 64-bit register window (Window below): from one lookup
+// to the next a step is the entry's load, a subtract, a funnel shift and a
+// mask (the window's refill runs beside it); no global load sits between a
+// lookup and the next index.  Below bit 0 the window shifts in zeros, which
+// is the lookup's zero fill, so no step clamps.  Sixteen steps store their
+// bytes as one 16-byte word; the staging warps zero the bytes past each
+// stream's steps, so the kernel writes every output byte.  Mode x2 keeps
+// the first design: one thread a stream, the table in global memory.
 //
 // What bounds it on the H100: the chain of seg dependent steps a stream
-// (8192 at 32 KiB blocks), each a stream read, then a table lookup whose
-// index depends on it.  2048 blocks give 8192 threads, about 62 an SM, and
-// their tables (2^tableLog entries each, repeated per stream) overflow L1,
-// so most lookups go to L2.  The later redesign stages one table a block in
-// shared memory (the four streams share it) and keeps a register bit
-// window, leaving one shared lookup a step.
+// (8192 at 32 KiB blocks), each a table lookup whose index depends on the
+// previous entry's nbBits.  All streams are resident at once, so the time is
+// one stream's chain: a shared load and three dependent operations a step
+// (about 30 ns with the refills and the ring beside it), against 0.12 ms
+// for 8192 dependent shared loads.
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "compat_bits.cuh"
+#include "stage.cuh"
 
 namespace {
 
 using compat::clampi;
 using compat::read_bits;
 
-constexpr int kThreads = 32;
+constexpr int kThreads = 32;           // the x2 kernel's block
 
-template <bool kX2>
-__global__ void huf_decode_kernel(const uint8_t* __restrict__ streams, int S,
-                                  const int32_t* __restrict__ csize,
-                                  const int32_t* __restrict__ n_out,
-                                  const int32_t* __restrict__ tlog,
-                                  const void* __restrict__ tbl0,
-                                  const void* __restrict__ tbl1, int T,
-                                  uint8_t* __restrict__ out, int max_seg,
-                                  bool* __restrict__ err, int R) {
+constexpr int kMaxBlocks = 16;         // x1: Huff0 blocks a CTA
+constexpr int kChainLanes = 16;        // x1: the lanes of a chain warp, a stream each
+constexpr int kWarps = kMaxBlocks;     // x1: a warp stages each block's table
+constexpr int kMaxLog = 12;            // the largest live table, 2^12 entries
+constexpr int kSlot = 1 << kMaxLog;    // entries of a block's shared table
+constexpr int kMaxNb = 16;             // the most bits a step of the shared form consumes
+constexpr int kFill = kMaxNb + 1;      // a step refills the window below this lookup offset
+constexpr int kUnroll = 16;            // steps of one 16-byte store
+constexpr int kBatch = 64;             // steps a ring request
+constexpr int kDrop = kBatch * kMaxNb / 32;   // the most words a batch consumes
+constexpr int kUnits = kDrop / 4;      // 16-byte units a request fetches at most
+constexpr int kInFlight = 2;           // requests whose copies may be in flight
+constexpr int kAhead = (kInFlight + 1) * kDrop + 16;   // words fetched ahead of the window
+constexpr int kRing = kBatch == 16 ? 64 : kBatch == 32 ? 128 : 256;   // a chain's ring of words
+static_assert(kChainLanes % 4 == 0 && kChainLanes <= 32 && 4 * kMaxBlocks <= kChainLanes * kWarps,
+              "a lane a stream, a warp a block");
+static_assert(kBatch % kUnroll == 0 && kDrop % 4 == 0 && kAhead + 2 * kDrop + 8 <= kRing,
+              "a request's units cover a batch's steps; ring slots");
+static_assert(kFill == kMaxNb + 1 && 32 + kMaxLog <= 64, "the window's reach");
+
+// The first design's x1 loop: the tables and the stream in global memory.
+__device__ bool x1_global(const uint32_t* __restrict__ words, int wmax, int bitpos,
+                          int dt_log, const uint8_t* __restrict__ bytes,
+                          const uint8_t* __restrict__ nbs, int T, int steps,
+                          uint8_t* __restrict__ orow) {
+  for (int i = 0; i < steps; ++i) {
+    const int avail = min(dt_log, max(bitpos, 0));
+    const int raw = static_cast<int>(read_bits(words, wmax, bitpos - avail, avail));
+    const int v = clampi(raw << (dt_log - avail), 0, T - 1);
+    orow[i] = __ldg(bytes + v);
+    bitpos -= __ldg(nbs + v);
+  }
+  return bitpos != 0;
+}
+
+// The x2 kernel: one thread a stream, the packed table in global memory.
+__global__ void huf_decode_kernel_x2(const uint8_t* __restrict__ streams, int S,
+                                     const int32_t* __restrict__ csize,
+                                     const int32_t* __restrict__ n_out,
+                                     const int32_t* __restrict__ tlog,
+                                     const int32_t* __restrict__ tbl0, int T,
+                                     uint8_t* __restrict__ out, int max_seg,
+                                     bool* __restrict__ err, int R) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   const uint8_t* row = streams + static_cast<size_t>(r) * S;
@@ -67,7 +115,7 @@ __global__ void huf_decode_kernel(const uint8_t* __restrict__ streams, int S,
   const int dt_log = tlog[r];
   const int nout = n_out[r];
   uint8_t* orow = out + static_cast<size_t>(r) * max_seg;
-  const size_t base = static_cast<size_t>(r) * T;
+  const int32_t* tbl = tbl0 + static_cast<size_t>(r) * T;
 
   auto index = [&]() {             // lookBitsFast, zero-filled at the bottom
     const int avail = min(dt_log, max(bitpos, 0));
@@ -75,36 +123,333 @@ __global__ void huf_decode_kernel(const uint8_t* __restrict__ streams, int S,
     return clampi(raw << (dt_log - avail), 0, T - 1);
   };
 
+  int p = 0;
+  for (int i = 0; i < max_seg && p < nout; ++i) {
+    const int e = __ldg(tbl + index());
+    const int nb = (e >> 16) & 0x3F;
+    const bool two = ((e >> 22) & 1) == 1;
+    const bool is_last = two && p == nout - 1;
+    // the JAX buffer has max_seg + 1 bytes (a 2-byte write's slack) and
+    // drops writes past it; the slack byte is cut off
+    if (p < max_seg) orow[p] = static_cast<uint8_t>(e & 0xFF);
+    if (two && !is_last && p + 1 < max_seg) orow[p + 1] = static_cast<uint8_t>((e >> 8) & 0xFF);
+    bitpos = is_last ? max(bitpos - nb, 0) : bitpos - nb;
+    p += (two && !is_last) ? 2 : 1;
+  }
+  const bool fail = bitpos != 0 || p != nout;
+  err[r] = nout > 0 && (fail || bad);
+}
+
+// a block's shared table: kSlot u16 entries (nbBits + 1) | byte << 8
+constexpr int kTable = 2 * kSlot;
+
+size_t smem_bytes(int per_cta) {
+  return static_cast<size_t>(per_cta) * (kTable + 4 * 4 * kRing + sizeof(int));
+}
+
+// The stream's bits [base, base + 64) in two registers, base a multiple of
+// 16 that goes below 0: the words below the row read as 0, the words past
+// its end as its last word (read_bits' clamp), so every lookup is one funnel
+// shift and a mask.  The next lookup's offset o = cursor - dtLog - base
+// stays in [1, 32]: a step whose offset is under kFill shifts 16 bits in
+// under the window beside its lookup (the cursor then moves down at most
+// kMaxNb bits from at least kFill + 16 above the new base).  x holds o - 1
+// in its low 8 bits: a table entry is (nbBits + 1) | byte << 8, so x is the
+// refilled offset less the entry, and the 32-bit funnel shift reads o - 1
+// from x's low 5 bits; the chain from one lookup to the next is the entry's
+// load, a subtract, a funnel shift and a mask, and the index comes out
+// doubled (the bit under it masked off), a u16 entry's byte offset.  The 16
+// bits come from `below`, the word under the window: its high half, then
+// its low half, after which `below` is loaded a word down, a step before
+// its next use at the earliest.
+//
+// With kRing, `below` comes from a ring in shared memory: every kBatch
+// steps request() fetches whole 16-byte units of the row with cp.async
+// until the ring reaches kAhead words under the window (at most kUnits
+// units, as kBatch steps consume at most kDrop words), and waits for the
+// copies of the requests before the last kInFlight: those hold every word
+// the next batch reads (kAhead is (kInFlight + 1) batches' words and more),
+// while a wait for the last request's copies would hold each batch for a
+// global load's latency.  A row need not start a unit: word i sits in slot
+// (i + lead) % kRing, lead the row's word offset in its unit; the words
+// under the row's first unit boundary go to their slots by 4-byte copies
+// with the last unit.  Without kRing, `below` is read from global memory (a
+// cursor past the row's end).
+struct Window {
+  const uint32_t* words;
+  int wmax;
+  uint32_t* ring;
+  uint32_t lo, hi;     // the stream's bits [base, base + 32), [base + 32, base + 64)
+  uint32_t below;      // word jw(): the 16 bits under the window are one of its halves
+  int hp;              // base / 16
+  int x;               // o - 1 in the low 8 bits
+  int slot;            // word jw()'s slot in the ring
+  int lead;            // the row's first word's place in a 16-byte unit
+  int low;             // the lowest word fetched into the ring (low + lead: a unit's start)
+  int low_min;         // the lowest unit start inside the row
+  bool head;           // the words under low_min are fetched
+
+  __device__ __forceinline__ uint32_t word(int i) const {
+    return i < 0 ? 0u : __ldg(words + min(i, wmax));
+  }
+
+  // the word holding bits [base - 16, base)
+  __device__ __forceinline__ int jw() const { return (hp - 1) >> 1; }
+
+  template <bool kRingOn>
+  __device__ __forceinline__ void init(const uint32_t* w, int wm, uint32_t* r, int cursor,
+                                       int dt) {
+    words = w;
+    wmax = wm;
+    ring = r;
+    const int base = (cursor - dt - kFill) & ~15;
+    hp = base >> 4;
+    x = cursor - dt - base - 1;
+    const int k = base >> 5, s = base & 31;
+    lo = __funnelshift_r(word(k), word(k + 1), s);
+    hi = __funnelshift_r(word(k + 1), word(k + 2), s);
+    if (kRingOn) {
+      lead = static_cast<int>(reinterpret_cast<uintptr_t>(words) >> 2) & 3;
+      low_min = (4 - lead) & 3;
+      const int j = jw();
+      slot = (j + lead) & (kRing - 1);
+      low = max(((j + 1 - kAhead + lead) & ~3) - lead, low_min);
+      for (int i = j; i >= low; --i)
+        stage::cp_async4(ring + ((i + lead) & (kRing - 1)), words + i);
+      head = low == low_min;
+      if (head)
+        for (int i = 0; i < low_min; ++i)
+          stage::cp_async4(ring + ((i + lead) & (kRing - 1)), words + min(i, wmax));
+      stage::cp_async_commit();
+      stage::cp_async_wait_all();
+    }
+    fetch_below<kRingOn>();
+  }
+
+  // `below` anew where `take` holds (the slot a word down), as a predicated
+  // load: a branch a step would cost more than the loads it saves
+  template <bool kRingOn>
+  __device__ __forceinline__ void fetch_below(bool take = true) {
+    if (kRingOn) {
+      const bool inside = hp >= 1;                 // jw() >= 0, else the zeros under the row
+      const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(ring + slot));
+      asm volatile(
+          "{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t@q ld.shared.u32 %0, [%1];\n\t}\n"
+          : "+r"(below)
+          : "r"(a), "r"(static_cast<int>(take && inside)));
+      below = take && !inside ? 0u : below;
+    } else if (take) {
+      below = word(jw());
+    }
+  }
+
+  // the ring down to kAhead words under the window: kUnits 16-byte units at
+  // most; the copies of the last kInFlight requests may be in flight
+  __device__ __forceinline__ void request() {
+    const int want = jw() - kAhead;
+    // a loop, not kUnits predicated copies: a batch of a skewed stream
+    // moves the window a few words, so most requests fetch one unit or none
+    for (int u = 0; u < kUnits && low > want && low >= 4; ++u) {
+      low -= 4;
+      stage::cp_async16(ring + ((low + lead) & (kRing - 1)), words + low);
+    }
+    if (!head && low == low_min) {
+      for (int i = 0; i < low_min; ++i)
+        stage::cp_async4(ring + ((i + lead) & (kRing - 1)), words + min(i, wmax));
+      head = true;
+    }
+    stage::cp_async_commit();
+    stage::cp_async_wait<kInFlight>();
+  }
+
+  // one lookup in the block's table at smem + tbase: the byte of the dtLog
+  // bits under the cursor; the cursor down by its nbBits
+  template <bool kRingOn>
+  __device__ __forceinline__ uint32_t step(const uint8_t* __restrict__ smem, uint32_t tbase,
+                                           uint32_t mask2) {
+    const uint32_t e =
+        *reinterpret_cast<const uint16_t*>(smem + ((__funnelshift_r(lo, hi, x) & mask2) | tbase));
+    const int o1 = x & 0xFF;
+    const bool fill = o1 < kFill - 1;
+    const bool high = (hp & 1) == 0;            // bits [base - 16, base): below's high half
+    const uint32_t lo2 = __byte_perm(below, lo, high ? 0x5432 : 0x5410);
+    hi = fill ? __byte_perm(lo, hi, 0x5432) : hi;
+    lo = fill ? lo2 : lo;
+    hp -= fill;
+    x = o1 + (fill ? 17 : 1) - static_cast<int>(e);
+    const bool take = fill && !high;
+    if (kRingOn) slot = take ? (slot - 1) & (kRing - 1) : slot;
+    fetch_below<kRingOn>(take);
+    return e >> 8;
+  }
+
+  __device__ __forceinline__ int cursor(int dt) const { return 16 * hp + (x & 0xFF) + 1 + dt; }
+};
+
+// The steps of one stream, 16 a 16-byte store in whole batches; returns the
+// cursor after them.
+template <bool kRingOn>
+__device__ int x1_window(Window& w, const uint8_t* __restrict__ smem, uint32_t tbase, int dt,
+                         int steps, uint8_t* __restrict__ orow, bool wide) {
+  const uint32_t mask2 = ((1u << dt) - 1u) << 1;
+  int i = 0;
+  if (wide) {
+    uint4* o128 = reinterpret_cast<uint4*>(orow);
+    for (; i + kBatch <= steps; i += kBatch) {
+      if (kRingOn) w.request();
+#pragma unroll
+      for (int h = 0; h < kBatch; h += kUnroll) {
+        uint32_t q[kUnroll / 4];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const uint32_t byte = w.template step<kRingOn>(smem, tbase, mask2);
+          q[u / 4] = u & 3 ? q[u / 4] | byte << (8 * (u & 3)) : byte;
+        }
+        o128[(i + h) / kUnroll] = make_uint4(q[0], q[1], q[2], q[3]);
+      }
+    }
+  }
+  for (; i < steps; ++i)
+    orow[i] = static_cast<uint8_t>(w.template step<kRingOn>(smem, tbase, mask2));
+  return w.cursor(dt);
+}
+
+__global__ void __launch_bounds__(32 * kWarps)
+huf_decode_kernel_x1(const uint8_t* __restrict__ streams, int S,
+                     const int32_t* __restrict__ csize,
+                     const int32_t* __restrict__ n_out,
+                     const int32_t* __restrict__ tlog,
+                     const uint8_t* __restrict__ tbl_byte,
+                     const uint8_t* __restrict__ tbl_nb, int T,
+                     uint8_t* __restrict__ out, int max_seg,
+                     bool* __restrict__ err, int R, int per_cta) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* rings = reinterpret_cast<uint32_t*>(smem + static_cast<size_t>(per_cta) * kTable);
+  int* fast = reinterpret_cast<int*>(rings + 4 * per_cta * kRing);
+  const int r0 = blockIdx.x * per_cta * 4;           // the CTA's first row
+  const int nrows = min(4 * per_cta, R - r0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // 16-byte output stores: rows that start 16-byte units
+  const bool wide = max_seg % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  auto steps_of = [&](int r) { return max(min(n_out[r], max_seg), 0); };
+
+  // 1. warp p: block p's table in shared memory if its rows agree (fast[p]),
+  // and its rows' bytes past their steps zeroed
+  const int p = warp;
+  if (4 * p < nrows) {
+    const int rb = r0 + 4 * p, nr = min(4, nrows - 4 * p);
+    const int dt = tlog[rb];
+    bool ok = dt >= 0 && dt <= kMaxLog && (1 << dt) <= T;
+    for (int j = 1; j < nr; ++j) ok &= tlog[rb + j] == dt;
+    const int L = ok ? 1 << dt : 0;
+    const uint8_t* b0 = tbl_byte + static_cast<size_t>(rb) * T;
+    const uint8_t* n0 = tbl_nb + static_cast<size_t>(rb) * T;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(smem + static_cast<size_t>(p) * kTable);
+    // rows 1-3 (row 0 again where the block has fewer), compared whole
+    const size_t o1 = static_cast<size_t>(min(1, nr - 1)) * T;
+    const size_t o2 = static_cast<size_t>(min(2, nr - 1)) * T;
+    const size_t o3 = static_cast<size_t>(min(3, nr - 1)) * T;
+    if (L >= 16 && T % 16 == 0 && reinterpret_cast<uintptr_t>(tbl_byte) % 16 == 0 &&
+        reinterpret_cast<uintptr_t>(tbl_nb) % 16 == 0) {
+      // 16-byte loads, the eight of a lane's entries in flight at once
+      // (written out: a loop unrolled by the compiler mixed up the vectors
+      // of its remainder)
+      auto same = [](uint4 a, uint4 b) {
+        return a.x == b.x && a.y == b.y && a.z == b.z && a.w == b.w;
+      };
+      for (int i = 16 * lane; i < L; i += 16 * 32) {
+        const uint4 bv = __ldg(reinterpret_cast<const uint4*>(b0 + i));
+        const uint4 nv = __ldg(reinterpret_cast<const uint4*>(n0 + i));
+        const uint4 b1 = __ldg(reinterpret_cast<const uint4*>(b0 + o1 + i));
+        const uint4 n1 = __ldg(reinterpret_cast<const uint4*>(n0 + o1 + i));
+        const uint4 b2 = __ldg(reinterpret_cast<const uint4*>(b0 + o2 + i));
+        const uint4 n2 = __ldg(reinterpret_cast<const uint4*>(n0 + o2 + i));
+        const uint4 b3 = __ldg(reinterpret_cast<const uint4*>(b0 + o3 + i));
+        const uint4 n3 = __ldg(reinterpret_cast<const uint4*>(n0 + o3 + i));
+        ok &= same(b1, bv) && same(n1, nv) && same(b2, bv) && same(n2, nv) &&
+              same(b3, bv) && same(n3, nv);
+        ok &= (__vcmpgtu4(nv.x, 0x10101010u) | __vcmpgtu4(nv.y, 0x10101010u) |
+               __vcmpgtu4(nv.z, 0x10101010u) | __vcmpgtu4(nv.w, 0x10101010u)) == 0;
+        // u16 entries (nb + 1) | byte << 8, two a word (nb <= 16: no carry)
+        const uint4 e1 = make_uint4(nv.x + 0x01010101u, nv.y + 0x01010101u,
+                                    nv.z + 0x01010101u, nv.w + 0x01010101u);
+        uint4* d = reinterpret_cast<uint4*>(dst + i / 2);
+        d[0] = make_uint4(__byte_perm(e1.x, bv.x, 0x5140), __byte_perm(e1.x, bv.x, 0x7362),
+                          __byte_perm(e1.y, bv.y, 0x5140), __byte_perm(e1.y, bv.y, 0x7362));
+        d[1] = make_uint4(__byte_perm(e1.z, bv.z, 0x5140), __byte_perm(e1.z, bv.z, 0x7362),
+                          __byte_perm(e1.w, bv.w, 0x5140), __byte_perm(e1.w, bv.w, 0x7362));
+      }
+    } else {
+      for (int i = lane; i < L; i += 32) {
+        const uint8_t bv = b0[i], nv = n0[i];
+        ok &= b0[o1 + i] == bv && n0[o1 + i] == nv && b0[o2 + i] == bv &&
+              n0[o2 + i] == nv && b0[o3 + i] == bv && n0[o3 + i] == nv && nv <= kMaxNb;
+        reinterpret_cast<uint16_t*>(dst)[i] = static_cast<uint16_t>((nv + 1) | bv << 8);
+      }
+    }
+    ok = __all_sync(0xFFFFFFFFu, ok);
+    if (lane == 0) fast[p] = ok;
+    for (int j = 0; j < nr; ++j) {
+      uint8_t* orow = out + static_cast<size_t>(rb + j) * max_seg;
+      const int z0 = steps_of(rb + j);
+      const int z1 = wide ? min((z0 + 15) & ~15, max_seg) : max_seg;
+      for (int i = z0 + lane; i < z1; i += 32) orow[i] = 0;
+      for (int i = z1 + 16 * lane; i < max_seg; i += 16 * 32)
+        *reinterpret_cast<uint4*>(orow + i) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  __syncthreads();
+  const int sid = warp * kChainLanes + lane;         // the CTA's stream
+  if (lane >= kChainLanes || sid >= nrows) return;
+
+  // 2. the chains: stream k of block p is the CTA's stream 4p + k, lane
+  // (4p + k) % kChainLanes of warp (4p + k) / kChainLanes
+  const int r = r0 + sid, pb = sid >> 2;
+  const uint8_t* row = streams + static_cast<size_t>(r) * S;
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(row);
+  const int wmax = S / 4 - 1;
+  bool bad;
+  const int bitpos = compat::initial_bitpos(row, S, csize[r], &bad);
+  const int nout = n_out[r], steps = steps_of(r);
+  const int dt = tlog[r];
+  uint8_t* orow = out + static_cast<size_t>(r) * max_seg;
   bool fail;
-  if constexpr (!kX2) {
-    const uint8_t* bytes = static_cast<const uint8_t*>(tbl0) + base;
-    const uint8_t* nbs = static_cast<const uint8_t*>(tbl1) + base;
-    const int steps = min(nout, max_seg);
-    for (int i = 0; i < steps; ++i) {
-      const int v = index();
-      orow[i] = __ldg(bytes + v);
-      bitpos -= __ldg(nbs + v);
-    }
-    fail = bitpos != 0;
+  if (!fast[pb]) {
+    fail = x1_global(words, wmax, bitpos, dt, tbl_byte + static_cast<size_t>(r) * T,
+                     tbl_nb + static_cast<size_t>(r) * T, T, steps, orow);
   } else {
-    const int32_t* tbl = static_cast<const int32_t*>(tbl0) + base;
-    int p = 0;
-    for (int i = 0; i < max_seg && p < nout; ++i) {
-      const int e = __ldg(tbl + index());
-      const int nb = (e >> 16) & 0x3F;
-      const bool two = ((e >> 22) & 1) == 1;
-      const bool is_last = two && p == nout - 1;
-      // the JAX buffer has max_seg + 1 bytes (a 2-byte write's slack) and
-      // drops writes past it; the slack byte is cut off
-      if (p < max_seg) orow[p] = static_cast<uint8_t>(e & 0xFF);
-      if (two && !is_last && p + 1 < max_seg) orow[p + 1] = static_cast<uint8_t>((e >> 8) & 0xFF);
-      bitpos = is_last ? max(bitpos - nb, 0) : bitpos - nb;
-      p += (two && !is_last) ? 2 : 1;
+    const uint32_t tbase = pb * kTable;
+    Window w;
+    if (bitpos < 32 * (wmax + 1)) {     // the cursor inside the row: the ring
+      w.init<true>(words, wmax, rings + sid * kRing, bitpos, dt);
+      fail = x1_window<true>(w, smem, tbase, dt, steps, orow, wide) != 0;
+      stage::cp_async_wait_all();       // no copy may land after the CTA is gone
+    } else {
+      w.init<false>(words, wmax, nullptr, bitpos, dt);
+      fail = x1_window<false>(w, smem, tbase, dt, steps, orow, wide) != 0;
     }
-    fail = bitpos != 0 || p != nout;
   }
   err[r] = nout > 0 && (fail || bad);
 }
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 1;
+  }
+  return n;
+}
+
+// Huff0 blocks (four rows each) a CTA: spread the batch over every SM
+int per_cta_for(int R) {
+  const int blocks = (R + 3) / 4;
+  return std::max(1, std::min(kMaxBlocks, (blocks + sm_count() - 1) / sm_count()));
+}
+
+int x1_ctas(int R, int per_cta) { return (R + 4 * per_cta - 1) / (4 * per_cta); }
 
 }  // namespace
 
@@ -117,18 +462,47 @@ extern "C" int huf_decode_launch(const void* streams, int S, const void* csize,
       reinterpret_cast<uintptr_t>(streams) % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return 0;
-  const dim3 grid((R + kThreads - 1) / kThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   const auto* st = static_cast<const uint8_t*>(streams);
-  if (x2)
-    huf_decode_kernel<true><<<grid, kThreads, 0, s>>>(
+  if (x2) {
+    huf_decode_kernel_x2<<<(R + kThreads - 1) / kThreads, kThreads, 0, s>>>(
         st, S, static_cast<const int32_t*>(csize), static_cast<const int32_t*>(n_out),
-        static_cast<const int32_t*>(tlog), tbl0, tbl1, T, static_cast<uint8_t*>(out),
-        max_seg, static_cast<bool*>(err), R);
-  else
-    huf_decode_kernel<false><<<grid, kThreads, 0, s>>>(
-        st, S, static_cast<const int32_t*>(csize), static_cast<const int32_t*>(n_out),
-        static_cast<const int32_t*>(tlog), tbl0, tbl1, T, static_cast<uint8_t*>(out),
-        max_seg, static_cast<bool*>(err), R);
+        static_cast<const int32_t*>(tlog), static_cast<const int32_t*>(tbl0), T,
+        static_cast<uint8_t*>(out), max_seg, static_cast<bool*>(err), R);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int per_cta = per_cta_for(R);
+  const size_t smem = smem_bytes(per_cta);
+  cudaError_t rc = cudaFuncSetAttribute(huf_decode_kernel_x1,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        static_cast<int>(smem));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  huf_decode_kernel_x1<<<x1_ctas(R, per_cta), 32 * kWarps, smem, s>>>(
+      st, S, static_cast<const int32_t*>(csize), static_cast<const int32_t*>(n_out),
+      static_cast<const int32_t*>(tlog), static_cast<const uint8_t*>(tbl0),
+      static_cast<const uint8_t*>(tbl1), T, static_cast<uint8_t*>(out), max_seg,
+      static_cast<bool*>(err), R, per_cta);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The x1 launch shape for R streams: {blocks a CTA, threads, dynamic shared
+// bytes, CTAs an SM can hold (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// CTAs, SMs}.
+extern "C" int huf_decode_config(int R, int* cfg) {
+  const int per_cta = per_cta_for(std::max(R, 1));
+  const size_t smem = smem_bytes(per_cta);
+  cudaError_t rc = cudaFuncSetAttribute(huf_decode_kernel_x1,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        static_cast<int>(smem));
+  int resident = 0;
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, huf_decode_kernel_x1,
+                                                       32 * kWarps, smem);
+  cfg[0] = per_cta;
+  cfg[1] = 32 * kWarps;
+  cfg[2] = static_cast<int>(smem);
+  cfg[3] = resident;
+  cfg[4] = x1_ctas(std::max(R, 1), per_cta);
+  cfg[5] = sm_count();
+  return static_cast<int>(rc);
 }

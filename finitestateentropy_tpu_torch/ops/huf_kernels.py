@@ -6,14 +6,17 @@ prefix-sum bit pack (no loop-carried state) and each decode stream as a
 ``fori_loop`` nbBits chain (huf_decompress.c:194-237) vectorized over 4*B
 streams.  Here:
 
-* ``huf_encode_4x_batch`` -> csrc/huf_encode.cu, one thread a stream (4 a
-  block), each stream's symbols in descending position order through a
-  forward 64-bit bit container, then its endMark;
-* ``huf_decode_4x1_batch`` -> csrc/huf_decode.cu mode x1, one thread a
-  stream: a serial chain of dtLog-bit lookups (byte, nbBits);
-* ``huf_decode_4x2_batch`` -> csrc/huf_decode.cu mode x2: the same with
-  one- or two-byte entries (pack_dtable_x2), the last-symbol rule of
-  HUF_decodeLastSymbolX2 included.
+* ``huf_encode_4x_batch`` -> csrc/huf_encode.cu, a warp a stream (a CTA
+  a block): each stream's symbols in descending position order, placed
+  128 at a time by a warp scan of their widths, then its endMark; the
+  kernel writes every output word;
+* ``huf_decode_4x1_batch`` -> csrc/huf_decode.cu mode x1, one lane a
+  stream, the four streams of a block over one table in shared memory: a
+  serial chain of dtLog-bit lookups (byte, nbBits) through a register bit
+  window; the kernel writes every output byte;
+* ``huf_decode_4x2_batch`` -> csrc/huf_decode.cu mode x2, one thread a
+  stream: the same with one- or two-byte entries (pack_dtable_x2), the
+  last-symbol rule of HUF_decodeLastSymbolX2 included.
 
 ``build_dtables_x1`` (the X1 fill ordered by (weight, symbol)) is torch
 tensor ops on the inputs' device; ``pack_dtable_x2`` packs a table built
@@ -98,7 +101,7 @@ def _encode_kernel(src_u8, n, val_table, nb_table, max_block: int,
     B, S = src_u8.shape
     dev = src_u8.device
     W = (out_seg_bytes + 3) // 4
-    words = torch.zeros((B, 4, W), dtype=torch.int32, device=dev)
+    words = torch.empty((B, 4, W), dtype=torch.int32, device=dev)
     sizes = torch.empty((B, 4), dtype=torch.int32, device=dev)
     src = src_u8.contiguous()
     nn, val, nb = (t.to(torch.int32).contiguous() for t in (n, val_table, nb_table))
@@ -271,10 +274,13 @@ def _decode_x2(streams_u8, csize, n_out, table_log, tbl, max_seg: int):
 def _decode_kernel(streams_u8, csize, n_out, table_log, tables, max_seg: int,
                    x2: bool):
     """The decode kernel (csrc/huf_decode.cu) on one device's tensors: mode
-    x1 takes (byte[R, T], nb[R, T]) uint8, mode x2 (tbl[R, T],) int32."""
+    x1 takes (byte[R, T], nb[R, T]) uint8, mode x2 (tbl[R, T],) int32.  The
+    x1 kernel writes every output byte; the x2 kernel only those it
+    decodes."""
     R, S = streams_u8.shape
     dev = streams_u8.device
-    out = torch.zeros((R, max_seg), dtype=torch.uint8, device=dev)
+    alloc = torch.zeros if x2 else torch.empty
+    out = alloc((R, max_seg), dtype=torch.uint8, device=dev)
     err = torch.empty((R,), dtype=torch.bool, device=dev)
     st = streams_u8.contiguous()
     if st.data_ptr() % 4:           # the kernel reads the stream as u32 words

@@ -1,23 +1,25 @@
-"""Variants of the flat-rank, v0 and FSE kernels, built side by side and
-timed on one card:
+"""Variants of the flat-rank, v0, FSE and Huff0 kernels, built side by
+side and timed on one card:
 
     python -m finitestateentropy_tpu_torch.utils.kernel_variants [name ...]
 
 A variant is the committed source of csrc/rans_decode_flat.cu,
-csrc/turbo_fse_decode.cu, csrc/fse_encode.cu or csrc/fse_decode.cu with a
-few text substitutions: another number of state chains a thread, another
-way to exchange the warps' counts, another chunk or number of blocks a
-CTA, the FSE encode's placement after its chains instead of beside them,
-or one part of the step taken out.  The last kind (``TIMING_ONLY``)
-computes wrong results: it only shows what the part costs.  Every variant
-is built with nvcc into build/kernel_variants/ (one process per variant,
-started together), launched through its C entry on the batches of
-chip_smoke.py's paths (ratio mode on 64 x 1 MiB of Proba80, the totals
-wire on 3 MiB, v1 pair frames on 8 MiB, v0 frames on 16 x 1 MiB, the FSE
-codec's 2048 blocks of 32 KiB of Proba80), held against the plain version
-and timed (CUDA events, mean of 20 launches, the better of two rounds).
-Prints one JSON line: {"gpu", "ms": {"variant/case": ms}, "exact":
-{"variant/case": bool}}.  Exits 1 without a CUDA device.
+csrc/turbo_fse_decode.cu, csrc/fse_encode.cu, csrc/fse_decode.cu,
+csrc/huf_encode.cu or csrc/huf_decode.cu with a few text substitutions:
+another number of state chains a thread, another way to exchange the warps'
+counts, another chunk, ring or number of blocks a CTA, the FSE encode's
+placement after its chains instead of beside them, the first design's loop
+forced (the Huff0 kernels' fallbacks), or one part of the step taken out.
+The last kind (``TIMING_ONLY``) computes wrong results: it only shows what
+the part costs.  Every variant is built with nvcc into
+build/kernel_variants/ (one process per variant, started together),
+launched through its C entry on the batches of chip_smoke.py's paths
+(ratio mode on 64 x 1 MiB of Proba80, the totals wire on 3 MiB, v1 pair
+frames on 8 MiB, v0 frames on 16 x 1 MiB, the FSE and Huff0 codecs' 2048
+blocks of 32 KiB of Proba80), held against the plain version and timed
+(CUDA events, mean of 20 launches, the better of two rounds).  Prints one
+JSON line: {"gpu", "ms": {"variant/case": ms}, "exact": {"variant/case":
+bool}}.  Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from .probagen import generate_proba
 
 FLAT, V0 = "rans_decode_flat", "turbo_fse_decode"
 FSE_ENC, FSE_DEC = "fse_encode", "fse_decode"
+HUF_ENC, HUF_DEC = "huf_encode", "huf_decode"
 _CHAINS = "constexpr int kChains = {}; "
 _FLAT_EXCHANGE = """\
       const int rc = lane < kWarps ? cnt[s & 1][lane] : 0;
@@ -93,6 +96,14 @@ _FLAT_BALLOTS = """\
 _BARRIER = "      __syncthreads();\n      // every warp is past"
 _ENC_PLACE = ("      if (k > 0) place_chunk(k - 1);\n", "")
 _ENC_ZERO = ("          words[static_cast<size_t>(b0 + p) * W + wd] = 0;", "          ;")
+_HUF_ATOMICS = ("""\
+    if (width > 0 || lane == 0) atomicOr(wb + w, lo << sh | (lane == 0 ? carry : 0u));
+    if (sh + width > 32) atomicOr(wb + w + 1, __funnelshift_l(lo, hi, sh));
+    if (sh + width > 64) atomicOr(wb + w + 2, hi >> (32 - sh));
+""", "    if (lo == 0xFFFFFFFFu && sh == 31) wb[w] = hi;\n")
+_HUF_REQUEST = ("      if (kRingOn) w.request();", "")
+_HUF_BELOW = ('          : "r"(a), "r"(static_cast<int>(take && inside)));',
+              '          : "r"(a), "r"(0));')
 
 # name -> (source, [(old, new), ...]); substitutions apply in order
 VARIANTS = {
@@ -179,14 +190,74 @@ VARIANTS = {
     "fse_decode_no_store": (FSE_DEC, [(
         "        o128[t / kUnroll] = make_uint4(q[0], q[1], q[2], q[3]);",
         "        if ((q[0] & q[1] & q[2] & q[3]) == ~0u) o128[0] = make_uint4(q[0], 0, 0, 0);")]),
+    "huf_encode": (HUF_ENC, []),
+    # at most 32 registers a thread: 16 CTAs an SM, the batch in one wave
+    "huf_encode_regs32": (HUF_ENC, [("__launch_bounds__(kThreads)\nhuf_encode_kernel",
+                                     "__launch_bounds__(kThreads, 16)\nhuf_encode_kernel")]),
+    # byte loads only (no aligned word a lane)
+    "huf_encode_bytes": (HUF_ENC, [("  const int whole = by_word ? active / kChunk : 0;",
+                                    "  const int whole = 0;")]),
+    # every stream through the first design's thread-a-stream loop
+    "huf_encode_serial": (HUF_ENC, [(
+        "const bool shared_form = __syncthreads_and(ok);",
+        "const bool shared_form = __syncthreads_and(ok) && false;")]),
+    # no placement: the fields' bits never reach the word buffer
+    "huf_encode_no_place": (HUF_ENC, [_HUF_ATOMICS]),
+    "huf_decode": (HUF_DEC, []),
+    # blocks a CTA and the lanes of a chain warp: (16, 16) is four chain warps
+    # of 16 streams a CTA, one CTA an SM
+    **{f"huf_decode_b{b}l{n}": (HUF_DEC, [
+        ("constexpr int kMaxBlocks = 16;", f"constexpr int kMaxBlocks = {b};"),
+        ("constexpr int kChainLanes = 16;", f"constexpr int kChainLanes = {n};")])
+       for b, n in ((16, 32), (16, 8), (8, 16), (4, 16))},
+    # steps a ring request: 16 or 32 (the ring's reach and size follow)
+    **{f"huf_decode_batch{n}": (HUF_DEC, [("constexpr int kBatch = 64;",
+                                           f"constexpr int kBatch = {n};")]) for n in (16, 32)},
+    # a request as kUnits predicated copies, not a loop
+    "huf_decode_request_unrolled": (HUF_DEC, [(
+        "    for (int u = 0; u < kUnits && low > want && low >= 4; ++u) {\n"
+        "      low -= 4;\n"
+        "      stage::cp_async16(ring + ((low + lead) & (kRing - 1)), words + low);\n"
+        "    }",
+        "#pragma unroll\n"
+        "    for (int u = 0; u < kUnits; ++u) {\n"
+        "      const bool p = low > want && low >= 4;\n"
+        "      stage::cp_async16_if(p, ring + ((low - 4 + lead) & (kRing - 1)), "
+        "words + max(low - 4, 0));\n"
+        "      low = p ? low - 4 : low;\n"
+        "    }")]),
+    # the wait for the ring's copies: the last request's too
+    "huf_decode_inflight1": (HUF_DEC, [("constexpr int kInFlight = 2;",
+                                        "constexpr int kInFlight = 1;")]),
+    # `below` loaded every step, not only when a refill took its low half
+    "huf_decode_below_every": (HUF_DEC, [("    fetch_below<kRingOn>(take);",
+                                          "    fetch_below<kRingOn>(true);")]),
+    # every stream through the first design's loop (global tables, read_bits)
+    "huf_decode_global": (HUF_DEC, [("  if (!fast[pb]) {", "  if (true) {")]),
+    # parts taken out: the lookups' bank conflicts (every lane in banks of
+    # its own, wrong entries), the ring's requests, its reads, both, the
+    # output stores
+    "huf_decode_no_conflict": (HUF_DEC, [(
+        "smem + ((__funnelshift_r(lo, hi, x) & mask2) | tbase)",
+        "smem + ((__funnelshift_r(lo, hi, x) & mask2 & ~0x3Cu) | tbase | "
+        "((threadIdx.x & 15) << 2))")]),
+    "huf_decode_no_request": (HUF_DEC, [_HUF_REQUEST]),
+    "huf_decode_no_below": (HUF_DEC, [_HUF_BELOW]),
+    "huf_decode_chain_alone": (HUF_DEC, [_HUF_REQUEST, _HUF_BELOW]),
+    "huf_decode_no_store": (HUF_DEC, [(
+        "        o128[(i + h) / kUnroll] = make_uint4(q[0], q[1], q[2], q[3]);",
+        "        if ((q[0] & q[1] & q[2] & q[3]) == ~0u) o128[0] = make_uint4(q[0], 0, 0, 0);")]),
 }
 TIMING_ONLY = ("flat_no_barrier", "flat_no_exchange", "flat_no_ring",
                "flat_no_table", "v0_no_barrier", "fse_encode_no_place",
                "fse_encode_no_zero", "fse_encode_stage_only", "fse_encode_chain_alone",
-               "fse_decode_no_refill_load", "fse_decode_no_store")
+               "fse_decode_no_refill_load", "fse_decode_no_store", "huf_encode_no_place",
+               "huf_decode_no_conflict", "huf_decode_no_request", "huf_decode_no_below",
+               "huf_decode_chain_alone", "huf_decode_no_store")
 # the cases each source is timed on
 CASES_OF = {FLAT: ("v1_byte_64", "totals_3", "v1_pair_8"), V0: ("v0_16",),
-            FSE_ENC: ("fse_p80_2048",), FSE_DEC: ("fse_p80_2048", "fse_codec_2048")}
+            FSE_ENC: ("fse_p80_2048",), FSE_DEC: ("fse_p80_2048", "fse_codec_2048"),
+            HUF_ENC: ("huf_p80_2048",), HUF_DEC: ("huf_p80_2048",)}
 
 
 def variant_source(name: str) -> str:
@@ -255,6 +326,32 @@ def _fse_cases(corpus: bytes) -> dict:
                                                                         max_out=d["max_out"]))}}
 
 
+def _huf_cases(corpus: bytes) -> dict:
+    """{"huf_p80_2048": {source: (launch arguments, the plain version's
+    outputs)}}: the Huff0 codec's batch of 64 MiB in 32 KiB blocks, the
+    encode staged by its encode_inputs and the X1 decode of its compressed
+    blocks by its decode_inputs (as chip_smoke.py's huf path stages them)."""
+    from ..models.huf_codec import HufTpuCodec
+    from ..ops import huf_kernels
+
+    codec = HufTpuCodec()
+    blocks = [corpus[i:i + codec.block_size] for i in range(0, len(corpus), codec.block_size)]
+    e = codec.encode_inputs(codec.encode_plan(blocks)[1])
+    t = {k: torch.from_numpy(e[k]).to("cuda") for k in ("src", "n", "val", "nb")}
+    enc = (t["src"], t["n"], t["val"].to(torch.int32).contiguous(),
+           t["nb"].to(torch.int32).contiguous(), e["max_block"], e["seg_bytes"])
+    items = [(r.data, len(b)) for r, b in zip(codec.compress_blocks(blocks), blocks)]
+    d = codec.decode_inputs(items)
+    u = {k: torch.from_numpy(d[k]).to("cuda") for k in ("streams", "csize", "n_out", "tlog",
+                                                          "weights")}
+    B = len(items)
+    bt, nt = huf_kernels.build_dtables_x1(u["weights"], u["tlog"].view(B, 4)[:, 0])
+    tables = (bt.repeat_interleave(4, dim=0), nt.repeat_interleave(4, dim=0))
+    dec = (u["streams"], u["csize"], u["n_out"], u["tlog"], tables, d["max_seg"])
+    return {"huf_p80_2048": {HUF_ENC: (enc, huf_kernels.huf_encode_4x_batch_plain(*enc)),
+                             HUF_DEC: (dec, huf_kernels.huf_decode_4x1_batch_plain(*dec))}}
+
+
 def _cases(srcs) -> dict:
     """{case: (launch arguments, the plain version's outputs)} on the card
     for the sources srcs; the FSE case by source."""
@@ -288,6 +385,8 @@ def _cases(srcs) -> dict:
         cases["v0_16"] = ((ins, t4), v0.turbo_fse_decode_plain(*ins, t4, wrows))
     if {FSE_ENC, FSE_DEC} & set(srcs):
         cases.update(_fse_cases(corpus))
+    if {HUF_ENC, HUF_DEC} & set(srcs):
+        cases.update(_huf_cases(corpus))
     return cases
 
 
@@ -315,6 +414,22 @@ def _launcher(lib, src: str, args):
         call = (streams.data_ptr(), S, csize.data_ptr(), n.data_ptr(), tl.data_ptr(),
                 packed.data_ptr(), packed.shape[1], outs[0].data_ptr(), max_out,
                 outs[1].data_ptr(), B, stream)
+    elif src == HUF_ENC:
+        s_u8, n, val, nb, max_block, seg_bytes = args
+        B, S = s_u8.shape
+        W = (seg_bytes + 3) // 4
+        outs = (torch.empty((B, 4, W), dtype=torch.int32, device="cuda"),
+                torch.empty((B, 4), dtype=torch.int32, device="cuda"))
+        call = (s_u8.data_ptr(), S, n.data_ptr(), val.data_ptr(), nb.data_ptr(), val.shape[1],
+                outs[0].data_ptr(), W, outs[1].data_ptr(), B, max_block, stream)
+    elif src == HUF_DEC:
+        streams, csize, n_out, tl, (bt, nt), max_seg = args
+        R, S = streams.shape
+        outs = (torch.empty((R, max_seg), dtype=torch.uint8, device="cuda"),
+                torch.empty((R,), dtype=torch.bool, device="cuda"))
+        call = (streams.data_ptr(), S, csize.data_ptr(), n_out.data_ptr(), tl.data_ptr(),
+                bt.data_ptr(), nt.data_ptr(), bt.shape[1], 0, outs[0].data_ptr(), max_seg,
+                outs[1].data_ptr(), R, stream)
     elif src == V0:
         (cs, tbl, init, st), t4 = args
         G = tbl.shape[0]
@@ -366,9 +481,11 @@ def main(argv: list[str]) -> int:
         for name in names:
             src = VARIANTS[name][0]
             for case in CASES_OF[src]:
-                args, want = cases[case][src] if case.startswith("fse_") else cases[case]
+                args, want = (cases[case][src] if case.startswith(("fse_", "huf_"))
+                              else cases[case])
                 launch, outs = _launcher(libs[name], src, args)
                 key = f"{name}/{case}"
+                print(key, file=sys.stderr, flush=True)
                 t = _ms(launch)
                 ms[key] = min(ms.get(key, t), t)
                 exact[key] = all(torch.equal(o, w) for o, w in zip(outs, want))

@@ -115,43 +115,58 @@ HUF_BLOCKS = {"p80": P80[:S], "p14": P14[:S], "p80_odd": P80[:S - 1],
               "p02": P02[:S]}
 
 
-def _huf_inputs(names):
-    """src, ns, val, nb (the encode's) and the headers."""
-    B = len(names)
-    src = np.zeros((B, S), np.uint8)
+def _huf_code(block: bytes):
+    """The block's Huff0 code table and its header (the codec's tableLog)."""
+    count, max_sv, _ = hist_count(block)
+    tlog = fse_optimal_table_log(11, len(block), max_sv, minus=1, max_allowed=12)
+    table = huf_build_ctable(count, max_sv, tlog)
+    return table, huf_write_ctable(table, max_sv)
+
+
+def _huf_arrays(blocks, width: int = S, codes=None):
+    """src[B, width], ns, val[B, 256] u16, nb[B, 256] u8 (the encode's) and
+    the headers of blocks; codes[k] (a table and its header) where given,
+    else each block's own."""
+    B = len(blocks)
+    src = np.zeros((B, width), np.uint8)
     ns = np.zeros(B, np.int32)
     val = np.zeros((B, 256), np.uint16)
     nb = np.zeros((B, 256), np.uint8)
     headers = []
-    for k, name in enumerate(names):
-        block = HUF_BLOCKS[name]
-        count, max_sv, _ = hist_count(block)
-        tlog = fse_optimal_table_log(11, len(block), max_sv, minus=1, max_allowed=12)
-        table = huf_build_ctable(count, max_sv, tlog)
-        headers.append(huf_write_ctable(table, max_sv))
+    for k, block in enumerate(blocks):
+        table, header = codes[k] if codes else _huf_code(block)
+        headers.append(header)
         src[k, : len(block)] = np.frombuffer(block, np.uint8)
         ns[k] = len(block)
-        val[k, : max_sv + 1] = table.val
-        nb[k, : max_sv + 1] = table.nb_bits
+        val[k, : len(table.val)] = table.val
+        nb[k, : len(table.nb_bits)] = table.nb_bits
     return src, ns, val, nb, headers
 
 
-def _huf_decode_inputs(words, sizes, ns, headers):
-    """(streams[4B, S'], csize[4B], nout[4B], tlogs[4B], weights[B, 256])."""
+def _huf_inputs(names):
+    """src, ns, val, nb (the encode's) and the headers."""
+    return _huf_arrays([HUF_BLOCKS[name] for name in names])
+
+
+def _huf_decode_inputs(words, sizes, ns, headers, width: int = 2 * S // 4):
+    """(streams[4B, width], csize[4B], nout[4B], tlogs[4B], weights[B, 256]);
+    a stream longer than its row is cut there."""
     B = len(ns)
-    width = 2 * S // 4
     raw = np.asarray(words).astype("<u4").view(np.uint8).reshape(B, 4, -1)
     streams = np.zeros((4 * B, width), np.uint8)
     csize = np.asarray(sizes).reshape(-1).astype(np.int32)
     nout = np.zeros(4 * B, np.int32)
     tlogs = np.zeros(4 * B, np.int32)
     weights = np.zeros((B, 256), np.int32)
+    stats = {}
     for k in range(B):
-        w, _rs, _nsym, tlog, _used = huf_read_stats(headers[k])
+        if headers[k] not in stats:
+            stats[headers[k]] = huf_read_stats(headers[k])
+        w, _rs, _nsym, tlog, _used = stats[headers[k]]
         weights[k, : len(w)] = np.frombuffer(w, np.uint8)
         seg = (int(ns[k]) + 3) // 4
         for j in range(4):
-            c = csize[4 * k + j]
+            c = min(int(csize[4 * k + j]), width, raw.shape[2])
             streams[4 * k + j, :c] = raw[k, j, :c]
             nout[4 * k + j] = seg if j < 3 else int(ns[k]) - 3 * seg
             tlogs[4 * k + j] = tlog
@@ -540,6 +555,133 @@ def test_huf_x2_lookups_follow_the_codes():
     assert got[:4].sum() < 0.75 * nout[:4].sum()       # Proba80: mostly pairs
 
 
+# The Huff0 batches the GPU tests also run, held against JAX here: name ->
+# (src, ns, val, nb, headers, max_block, seg_bytes, decode row bytes).
+HUF_CASES = ("clean", "corrupt", "cursor_low")
+
+
+def _huf_full():
+    """Whole 32 KiB blocks of Proba80 and Proba14, the codec's shapes."""
+    blocks = [generate_proba(p, FULL) for p in (80, 14)]
+    return (*_huf_arrays(blocks, FULL), FULL, (FULL + 3) // 4 + 64, 8240)
+
+
+def _huf_n_edge():
+    """Blocks of n = 0, 1, 3, 13, 77, 4095 and S + 5 bytes (past max_block:
+    the last segment's positions clamp into the row, a stream of seg_cap + 1
+    codes loses its endMark, and its n_out exceeds max_seg) over the codes
+    of 4 KiB of Proba80 and Proba14."""
+    codes = [_huf_code(HUF_BLOCKS[name]) for name in ("p80", "p14")]
+    lens = [0, 1, 3, 13, 77, 4095, S + 5]
+    src, ns, val, nb, headers = _huf_arrays(
+        [P80[:S]] * len(lens), S, [codes[k % 2] for k in range(len(lens))])
+    src[1::2] = np.frombuffer(P14[:S], np.uint8)
+    ns[:] = lens
+    return src, ns, val, nb, headers, S, (S + 3) // 4 + 64, 2 * S // 4
+
+
+def _huf_batch(batch: str):
+    if batch == "full_32k":
+        return _huf_full()
+    if batch == "n_edge":
+        return _huf_n_edge()
+    return (*_huf_inputs(HUF_NAMES), S, (S + 3) // 4 + 64, 2 * S // 4)
+
+
+def _huf_alter_tables(batch, tlogs, byte_t, nb_t):
+    """The decode tables of a batch, one row a stream: "mixed_tables" gives
+    stream 2 of block 1 block 0's table, stream 1 of block 3 a tableLog one
+    lower and block 4 tableLog 13 (past the 4096-entry table), so those
+    blocks' streams decode from the global tables.  numpy in, numpy out."""
+    tl = tlogs.copy()
+    bt, nt = np.repeat(byte_t, 4, axis=0), np.repeat(nb_t, 4, axis=0)
+    if batch == "mixed_tables":
+        bt[4 * 1 + 2], nt[4 * 1 + 2] = byte_t[0], nb_t[0]
+        tl[4 * 3 + 1] -= 1
+        tl[4 * 4: 4 * 4 + 4] = 13
+    return tl, bt, nt
+
+
+def _huf_decode_case(streams, csize, nout, case, max_seg):
+    """The decode's inputs in a case: "corrupt" flips a bit of stream 6,
+    zeroes the endMark byte of stream 8 (a missing endMark), and gives
+    stream 3 csize 0, stream 5 n_out 0, stream 9 n_out past max_seg and
+    stream 10 a csize past its row (the cursor starts past the row's end;
+    indices taken modulo the rows); "cursor_low" cuts stream 0's csize to an
+    eighth, so its cursor falls below bit 0 long before the end (the
+    lookups' zero fill)."""
+    st, cs, no = streams.copy(), csize.copy(), nout.copy()
+    R, width = st.shape
+    if case == "corrupt":
+        st[6 % R, min(cs[6 % R] // 2, width - 1)] ^= 0x40
+        st[8 % R, min(max(cs[8 % R] - 1, 0), width - 1)] = 0
+        cs[3 % R] = 0
+        no[5 % R] = 0
+        no[9 % R] = max_seg + 7
+        cs[10 % R] = width + 100
+    elif case == "cursor_low":
+        cs[0] = max(cs[0] // 8, 1)
+    return st, cs, no
+
+
+@pytest.fixture(scope="module", params=["full_32k", "mixed_tables", "n_edge"])
+def huf_jax_batch(request):
+    """JAX's encode of a Huff0 batch and its X1 decode in each case."""
+    import jax.numpy as jnp
+
+    from finitestateentropy_tpu.ops import huf_kernels as j_k
+
+    batch = request.param
+    src, ns, val, nb, headers, max_block, seg_bytes, row_bytes = _huf_batch(batch)
+    words, sizes = j_k.huf_encode_4x_batch(jnp.asarray(src), jnp.asarray(ns),
+                                           jnp.asarray(val), jnp.asarray(nb), max_block,
+                                           seg_bytes)
+    words, sizes = np.asarray(words), np.asarray(sizes)
+    streams, csize, nout, tlogs, weights = _huf_decode_inputs(words, sizes, ns, headers,
+                                                              row_bytes)
+    byte_t, nb_t = j_k.build_dtables_x1(jnp.asarray(weights),
+                                        jnp.asarray(tlogs.reshape(-1, 4)[:, 0]))
+    tl, bt, nt = _huf_alter_tables(batch, tlogs, np.asarray(byte_t), np.asarray(nb_t))
+    max_seg = (max_block + 3) // 4
+    dec = {}
+    for case in HUF_CASES:
+        st, cs, no = _huf_decode_case(streams, csize, nout, case, max_seg)
+        out, err = j_k.huf_decode_4x1_batch(jnp.asarray(st), jnp.asarray(cs), jnp.asarray(no),
+                                            jnp.asarray(tl), (jnp.asarray(bt), jnp.asarray(nt)),
+                                            max_seg=max_seg)
+        dec[case] = (st, cs, no, np.asarray(out), np.asarray(err))
+    return dict(batch=batch, src=src, ns=ns, val=val, nb=nb, max_block=max_block,
+                seg_bytes=seg_bytes, words=words, sizes=sizes, tl=tl, bt=bt, nt=nt,
+                max_seg=max_seg, dec=dec)
+
+
+def test_huf_batch_encode_plain_equals_jax(huf_jax_batch):
+    """Whole 32 KiB blocks, n = 0 to past max_block."""
+    j = huf_jax_batch
+    words, sizes = huf_kernels.huf_encode_4x_batch_plain(
+        _t(j["src"]), _t(j["ns"]), _t(j["val"].astype(np.int32)),
+        _t(j["nb"].astype(np.int32)), j["max_block"], j["seg_bytes"])
+    assert np.array_equal(_np(words).view(np.uint32), j["words"])
+    assert np.array_equal(_np(sizes), j["sizes"])
+    if j["batch"] == "n_edge":        # n = 0: four streams of the endMark alone
+        assert j["sizes"][0].tolist() == [1, 1, 1, 1]
+
+
+@pytest.mark.parametrize("case", HUF_CASES)
+def test_huf_batch_decode_plain_equals_jax(huf_jax_batch, case):
+    """The X1 decode of those batches, streams of one block with different
+    tables or tableLogs, corrupt streams, csize 0 or past the row, n_out 0 or
+    past max_seg, and a cursor below bit 0 long before the end."""
+    j = huf_jax_batch
+    st, cs, no, out_want, err_want = j["dec"][case]
+    out, err = huf_kernels.huf_decode_4x1_batch_plain(
+        _t(st), _t(cs), _t(no), _t(j["tl"]), (_t(j["bt"]), _t(j["nt"])), j["max_seg"])
+    assert np.array_equal(_np(out), out_want) and np.array_equal(_np(err), err_want)
+    if case == "clean" and j["batch"] == "full_32k":
+        assert not err_want.any()
+        assert np.array_equal(out_want.reshape(2, -1), j["src"])
+
+
 # ---------------------------------------------------------------------------
 # on the GPU: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -646,33 +788,85 @@ def test_cuda_fse_kernels_global_table_path(cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, base))
 
 
+def _huf_wave(B: int):
+    """B blocks of 32 KiB, rotations of Proba80, 14 and 2 in turn, the last
+    one cut to a third: the 64 MiB paths' batch at B = 2048."""
+    bases = [generate_proba(p, FULL) for p in (80, 14, 2)]
+    codes = [_huf_code(b) for b in bases]
+    blocks = [np.roll(np.frombuffer(bases[k % 3], np.uint8), 7919 * k).tobytes()
+              for k in range(B)]
+    blocks[-1] = blocks[-1][: FULL // 3]
+    return (*_huf_arrays(blocks, FULL, [codes[k % 3] for k in range(B - 1)]
+                         + [_huf_code(blocks[-1])]), FULL, (FULL + 3) // 4 + 64, 8240)
+
+
+def _huf_gpu_batch(batch: str):
+    """(src, ns, val, nb, headers, max_block, seg_bytes, decode row bytes) of
+    a GPU test batch."""
+    if batch == "rows8":            # decode rows 8 bytes into a 16-byte unit
+        return (*_huf_full()[:7], 8200)
+    if batch == "rows4":            # rows 0, 4, 8 and 12 bytes into a unit
+        return (*_huf_full()[:7], 8196)
+    if batch == "wave_2048":        # 64 MiB in 32 KiB blocks: one wave of CTAs
+        return _huf_wave(2048)
+    if batch == "ragged_301":       # not a multiple of the blocks a CTA takes
+        names = [HUF_NAMES[k % len(HUF_NAMES)] for k in range(301)]
+        return (*_huf_inputs(names), S, (S + 3) // 4 + 64, 2 * S // 4)
+    if batch == "nb20":             # a 20-bit code: the encode's first design
+        src, ns, val, nb, headers, *rest = _huf_batch("small")
+        top = int(np.argmax(np.bincount(src[2, : ns[2]], minlength=256)))
+        nb[2, top] = 20
+        return (src, ns, val, nb, headers, *rest)
+    return _huf_batch(batch)
+
+
 @pytest.mark.gpu
-def test_cuda_huf_kernels_equal_plain(cuda):
-    src, ns, val, nb, headers = _huf_inputs(HUF_NAMES)
+@pytest.mark.parametrize("batch", ["small", "full_32k", "rows8", "rows4", "wave_2048",
+                                   "ragged_301", "mixed_tables", "nb20", "n_edge"])
+def test_cuda_huf_kernels_equal_plain(cuda, batch):
+    """The encode, and the X1 and X2 decodes of its output in each of
+    HUF_CASES, against their plain versions on the card: small and whole
+    32 KiB blocks, decode rows that start 4, 8 or 12 bytes into a 16-byte
+    unit, 2048 blocks of 32 KiB (one wave), 301 blocks (a ragged last CTA),
+    streams of a block with different tables or tableLogs and a tableLog
+    past the table (the X1 decode's global path), a 20-bit code (the
+    encode's first design), n = 0 to past max_block; corrupt streams, csize
+    0 or past the row, n_out 0 or past max_seg, a cursor below bit 0 long
+    before the end."""
+    src, ns, val, nb, headers, max_block, seg_bytes, row_bytes = _huf_gpu_batch(batch)
     rk.reset_launches()
-    outs = {}
-    for dev in ("cpu", cuda):
-        words, sizes = huf_kernels.huf_encode_4x_batch(
-            _t(src, dev), _t(ns, dev), _t(val.astype(np.int32), dev),
-            _t(nb.astype(np.int32), dev), S, (S + 3) // 4 + 64)
-        streams, csize, nout, tlogs, weights = _huf_decode_inputs(
-            _np(words).view(np.uint32), _np(sizes), ns, headers)
-        streams[6, csize[6] // 2] ^= 0x40
-        streams[8, csize[8] - 1] = 0
-        bt, nt = huf_kernels.build_dtables_x1(_t(weights, dev),
-                                              _t(tlogs.reshape(-1, 4)[:, 0], dev))
-        args = (_t(streams, dev), _t(csize, dev), _t(nout, dev))
-        o1, e1 = huf_kernels.huf_decode_4x1_batch(
-            *args, _t(tlogs, dev), (bt.repeat_interleave(4, 0), nt.repeat_interleave(4, 0)),
-            max_seg=S // 4)
-        dts = [huf_read_dtable_x2(h)[0] for h in headers]
-        x2 = np.repeat(np.stack([huf_kernels.pack_dtable_x2(d) for d in dts]), 4, axis=0)
-        tl2 = np.repeat(np.array([d.table_log for d in dts], np.int32), 4)
-        o2, e2 = huf_kernels.huf_decode_4x2_batch(*args, _t(tl2, dev), _t(x2, dev),
-                                                  max_seg=S // 4)
-        outs[str(dev)] = [_np(x) for x in (words, sizes, o1, e1, o2, e2)]
+    enc = (_t(src, cuda), _t(ns, cuda), _t(val.astype(np.int32), cuda),
+           _t(nb.astype(np.int32), cuda), max_block, seg_bytes)
+    words, sizes = huf_kernels.huf_encode_4x_batch(*enc)
+    want = huf_kernels.huf_encode_4x_batch_plain(*enc)
     torch.cuda.synchronize()
-    assert all(np.array_equal(a, b) for a, b in zip(outs["cpu"], outs["cuda"]))
-    assert outs["cuda"][3][8] and outs["cuda"][5][8]
+    assert torch.equal(words, want[0]) and torch.equal(sizes, want[1])
+    streams, csize, nout, tlogs, weights = _huf_decode_inputs(
+        _np(words).view(np.uint32), _np(sizes), ns, headers, row_bytes)
+    bt, nt = huf_kernels.build_dtables_x1(_t(weights, cuda),
+                                          _t(tlogs.reshape(-1, 4)[:, 0], cuda))
+    tl, bt, nt = _huf_alter_tables(batch, tlogs, _np(bt), _np(nt))
+    dts = {h: huf_read_dtable_x2(h)[0] for h in set(headers)}
+    x2 = np.repeat(np.stack([huf_kernels.pack_dtable_x2(dts[h]) for h in headers]), 4, axis=0)
+    tl2 = np.repeat(np.array([dts[h].table_log for h in headers], np.int32), 4)
+    max_seg = (max_block + 3) // 4
+    for case in HUF_CASES:
+        st, cs, no = _huf_decode_case(streams, csize, nout, case, max_seg)
+        args = (_t(st, cuda), _t(cs, cuda), _t(no, cuda))
+        x1 = (*args, _t(tl, cuda), (_t(bt, cuda), _t(nt, cuda)), max_seg)
+        got = huf_kernels.huf_decode_4x1_batch(*x1)
+        want = huf_kernels.huf_decode_4x1_batch_plain(*x1)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (case, "x1")
+        if case == "clean" and batch in ("full_32k", "rows8", "rows4", "wave_2048"):
+            assert not _np(got[1]).any()
+        elif case == "corrupt" and batch == "small":
+            assert _np(got[1])[[3, 8]].all() and not _np(got[1])[[0, 5]].any()
+        x2a = (*args, _t(tl2, cuda), _t(x2, cuda), max_seg)
+        got = huf_kernels.huf_decode_4x2_batch(*x2a)
+        want = huf_kernels.huf_decode_4x2_batch_plain(*x2a)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (case, "x2")
+    n = len(HUF_CASES)
     assert {k: v for k, v in rk.launches.items() if v} == {
-        "huf_encode_4x": 1, "huf_decode_4x:x1": 1, "huf_decode_4x:x2": 1}
+        "huf_encode_4x": 1, "huf_decode_4x:x1": n, "huf_decode_4x:x2": n}
