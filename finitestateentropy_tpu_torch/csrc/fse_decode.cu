@@ -311,20 +311,9 @@ fse_decode_kernel(const uint8_t* __restrict__ streams, int S,
   err[b] = (bp_check != 0 && nout > 2) || bad;
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 1;
-  }
-  return n;
-}
-
 // blocks a CTA: spread the batch over every SM, at most 16 to a CTA
 int per_cta_for(int B) {
-  return std::max(1, std::min(kMaxBlocks, (B + sm_count() - 1) / sm_count()));
+  return std::max(1, std::min(kMaxBlocks, (B + stage::sm_count() - 1) / stage::sm_count()));
 }
 
 }  // namespace
@@ -370,6 +359,6 @@ extern "C" int fse_decode_config(int B, int* cfg) {
   cfg[2] = static_cast<int>(smem);
   cfg[3] = resident;
   cfg[4] = (std::max(B, 1) + per_cta - 1) / per_cta;
-  cfg[5] = sm_count();
+  cfg[5] = stage::sm_count();
   return static_cast<int>(rc);
 }

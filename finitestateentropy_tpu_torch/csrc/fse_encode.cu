@@ -56,6 +56,7 @@
 #include <cuda_runtime.h>
 
 #include "compat_bits.cuh"
+#include "stage.cuh"
 
 namespace {
 
@@ -397,20 +398,9 @@ fse_encode_kernel(const uint8_t* __restrict__ src, int S,
   }
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 1;
-  }
-  return n;
-}
-
 // blocks a CTA: spread the batch over every SM, at most 16 to a CTA
 int per_cta_for(int B) {
-  return std::max(1, std::min(kMaxBlocks, (B + sm_count() - 1) / sm_count()));
+  return std::max(1, std::min(kMaxBlocks, (B + stage::sm_count() - 1) / stage::sm_count()));
 }
 
 }  // namespace
@@ -457,6 +447,6 @@ extern "C" int fse_encode_config(int B, int* cfg) {
   cfg[2] = static_cast<int>(smem);
   cfg[3] = resident;
   cfg[4] = (std::max(B, 1) + per_cta - 1) / per_cta;
-  cfg[5] = sm_count();
+  cfg[5] = stage::sm_count();
   return static_cast<int>(rc);
 }

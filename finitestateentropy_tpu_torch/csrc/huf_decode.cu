@@ -32,7 +32,8 @@
 // loads and checks that the other three rows hold the same entries and
 // dtLog.  A block whose rows differ, whose dtLog lies outside [0, 12] or
 // above log2(T), or with an nbBits above 16 (never one build_dtables_x1
-// gives) runs the first design's loop over the global tables.  The stream
+// gives) runs the first design's loop over the global tables, as does a
+// stream whose cursor starts past its row (csize > S, a corrupt one).  The stream
 // is read through a 64-bit register window (Window below): from one lookup
 // to the next a step is the entry's load, a subtract, a funnel shift and a
 // mask (the window's refill runs beside it); no global load sits between a
@@ -75,7 +76,8 @@ constexpr int kDrop = kBatch * kMaxNb / 32;   // the most words a batch consumes
 constexpr int kUnits = kDrop / 4;      // 16-byte units a request fetches at most
 constexpr int kInFlight = 2;           // requests whose copies may be in flight
 constexpr int kAhead = (kInFlight + 1) * kDrop + 16;   // words fetched ahead of the window
-constexpr int kRing = kBatch == 16 ? 64 : kBatch == 32 ? 128 : 256;   // a chain's ring of words
+constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
+constexpr int kRing = pow2_at_least(kAhead + 2 * kDrop + 8);   // a chain's ring of words
 static_assert(kChainLanes % 4 == 0 && kChainLanes <= 32 && 4 * kMaxBlocks <= kChainLanes * kWarps,
               "a lane a stream, a warp a block");
 static_assert(kBatch % kUnroll == 0 && kDrop % 4 == 0 && kAhead + 2 * kDrop + 8 <= kRing,
@@ -163,7 +165,7 @@ size_t smem_bytes(int per_cta) {
 // its low half, after which `below` is loaded a word down, a step before
 // its next use at the earliest.
 //
-// With kRing, `below` comes from a ring in shared memory: every kBatch
+// `below` comes from a ring in shared memory: every kBatch
 // steps request() fetches whole 16-byte units of the row with cp.async
 // until the ring reaches kAhead words under the window (at most kUnits
 // units, as kBatch steps consume at most kDrop words), and waits for the
@@ -173,8 +175,7 @@ size_t smem_bytes(int per_cta) {
 // global load's latency.  A row need not start a unit: word i sits in slot
 // (i + lead) % kRing, lead the row's word offset in its unit; the words
 // under the row's first unit boundary go to their slots by 4-byte copies
-// with the last unit.  Without kRing, `below` is read from global memory (a
-// cursor past the row's end).
+// with the last unit.  The cursor starts inside the row.
 struct Window {
   const uint32_t* words;
   int wmax;
@@ -196,7 +197,6 @@ struct Window {
   // the word holding bits [base - 16, base)
   __device__ __forceinline__ int jw() const { return (hp - 1) >> 1; }
 
-  template <bool kRingOn>
   __device__ __forceinline__ void init(const uint32_t* w, int wm, uint32_t* r, int cursor,
                                        int dt) {
     words = w;
@@ -208,39 +208,32 @@ struct Window {
     const int k = base >> 5, s = base & 31;
     lo = __funnelshift_r(word(k), word(k + 1), s);
     hi = __funnelshift_r(word(k + 1), word(k + 2), s);
-    if (kRingOn) {
-      lead = static_cast<int>(reinterpret_cast<uintptr_t>(words) >> 2) & 3;
-      low_min = (4 - lead) & 3;
-      const int j = jw();
-      slot = (j + lead) & (kRing - 1);
-      low = max(((j + 1 - kAhead + lead) & ~3) - lead, low_min);
-      for (int i = j; i >= low; --i)
-        stage::cp_async4(ring + ((i + lead) & (kRing - 1)), words + i);
-      head = low == low_min;
-      if (head)
-        for (int i = 0; i < low_min; ++i)
-          stage::cp_async4(ring + ((i + lead) & (kRing - 1)), words + min(i, wmax));
-      stage::cp_async_commit();
-      stage::cp_async_wait_all();
-    }
-    fetch_below<kRingOn>();
+    lead = static_cast<int>(reinterpret_cast<uintptr_t>(words) >> 2) & 3;
+    low_min = (4 - lead) & 3;
+    const int j = jw();
+    slot = (j + lead) & (kRing - 1);
+    low = max(((j + 1 - kAhead + lead) & ~3) - lead, low_min);
+    for (int i = j; i >= low; --i)
+      stage::cp_async4(ring + ((i + lead) & (kRing - 1)), words + i);
+    head = low == low_min;
+    if (head)
+      for (int i = 0; i < low_min; ++i)
+        stage::cp_async4(ring + ((i + lead) & (kRing - 1)), words + min(i, wmax));
+    stage::cp_async_commit();
+    stage::cp_async_wait_all();
+    fetch_below();
   }
 
   // `below` anew where `take` holds (the slot a word down), as a predicated
   // load: a branch a step would cost more than the loads it saves
-  template <bool kRingOn>
   __device__ __forceinline__ void fetch_below(bool take = true) {
-    if (kRingOn) {
-      const bool inside = hp >= 1;                 // jw() >= 0, else the zeros under the row
-      const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(ring + slot));
-      asm volatile(
-          "{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t@q ld.shared.u32 %0, [%1];\n\t}\n"
-          : "+r"(below)
-          : "r"(a), "r"(static_cast<int>(take && inside)));
-      below = take && !inside ? 0u : below;
-    } else if (take) {
-      below = word(jw());
-    }
+    const bool inside = hp >= 1;                 // jw() >= 0, else the zeros under the row
+    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(ring + slot));
+    asm volatile(
+        "{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t@q ld.shared.u32 %0, [%1];\n\t}\n"
+        : "+r"(below)
+        : "r"(a), "r"(static_cast<int>(take && inside)));
+    below = take && !inside ? 0u : below;
   }
 
   // the ring down to kAhead words under the window: kUnits 16-byte units at
@@ -264,7 +257,6 @@ struct Window {
 
   // one lookup in the block's table at smem + tbase: the byte of the dtLog
   // bits under the cursor; the cursor down by its nbBits
-  template <bool kRingOn>
   __device__ __forceinline__ uint32_t step(const uint8_t* __restrict__ smem, uint32_t tbase,
                                            uint32_t mask2) {
     const uint32_t e =
@@ -278,17 +270,18 @@ struct Window {
     hp -= fill;
     x = o1 + (fill ? 17 : 1) - static_cast<int>(e);
     const bool take = fill && !high;
-    if (kRingOn) slot = take ? (slot - 1) & (kRing - 1) : slot;
-    fetch_below<kRingOn>(take);
+    slot = take ? (slot - 1) & (kRing - 1) : slot;
+    fetch_below(take);
     return e >> 8;
   }
 
   __device__ __forceinline__ int cursor(int dt) const { return 16 * hp + (x & 0xFF) + 1 + dt; }
 };
 
-// The steps of one stream, 16 a 16-byte store in whole batches; returns the
-// cursor after them.
-template <bool kRingOn>
+// The steps of one stream: whole batches of kBatch steps, a ring request
+// each, their bytes 16 a 16-byte store where the rows allow (wide), then
+// the rest; returns the cursor after them.  (A request in the rest's loop
+// made ptxas spill: 10% slower.)
 __device__ int x1_window(Window& w, const uint8_t* __restrict__ smem, uint32_t tbase, int dt,
                          int steps, uint8_t* __restrict__ orow, bool wide) {
   const uint32_t mask2 = ((1u << dt) - 1u) << 1;
@@ -296,21 +289,27 @@ __device__ int x1_window(Window& w, const uint8_t* __restrict__ smem, uint32_t t
   if (wide) {
     uint4* o128 = reinterpret_cast<uint4*>(orow);
     for (; i + kBatch <= steps; i += kBatch) {
-      if (kRingOn) w.request();
+      w.request();
 #pragma unroll
       for (int h = 0; h < kBatch; h += kUnroll) {
         uint32_t q[kUnroll / 4];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          const uint32_t byte = w.template step<kRingOn>(smem, tbase, mask2);
+          const uint32_t byte = w.step(smem, tbase, mask2);
           q[u / 4] = u & 3 ? q[u / 4] | byte << (8 * (u & 3)) : byte;
         }
         o128[(i + h) / kUnroll] = make_uint4(q[0], q[1], q[2], q[3]);
       }
     }
+  } else {
+    for (; i + kBatch <= steps; i += kBatch) {
+      w.request();
+      for (int u = 0; u < kBatch; ++u)
+        orow[i + u] = static_cast<uint8_t>(w.step(smem, tbase, mask2));
+    }
   }
   for (; i < steps; ++i)
-    orow[i] = static_cast<uint8_t>(w.template step<kRingOn>(smem, tbase, mask2));
+    orow[i] = static_cast<uint8_t>(w.step(smem, tbase, mask2));
   return w.cursor(dt);
 }
 
@@ -414,39 +413,22 @@ huf_decode_kernel_x1(const uint8_t* __restrict__ streams, int S,
   const int dt = tlog[r];
   uint8_t* orow = out + static_cast<size_t>(r) * max_seg;
   bool fail;
-  if (!fast[pb]) {
+  if (!fast[pb] || bitpos >= 32 * (wmax + 1)) {     // the cursor past the row: corrupt
     fail = x1_global(words, wmax, bitpos, dt, tbl_byte + static_cast<size_t>(r) * T,
                      tbl_nb + static_cast<size_t>(r) * T, T, steps, orow);
   } else {
-    const uint32_t tbase = pb * kTable;
     Window w;
-    if (bitpos < 32 * (wmax + 1)) {     // the cursor inside the row: the ring
-      w.init<true>(words, wmax, rings + sid * kRing, bitpos, dt);
-      fail = x1_window<true>(w, smem, tbase, dt, steps, orow, wide) != 0;
-      stage::cp_async_wait_all();       // no copy may land after the CTA is gone
-    } else {
-      w.init<false>(words, wmax, nullptr, bitpos, dt);
-      fail = x1_window<false>(w, smem, tbase, dt, steps, orow, wide) != 0;
-    }
+    w.init(words, wmax, rings + sid * kRing, bitpos, dt);
+    fail = x1_window(w, smem, pb * kTable, dt, steps, orow, wide) != 0;
+    stage::cp_async_wait_all();         // no copy may land after the CTA is gone
   }
   err[r] = nout > 0 && (fail || bad);
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 1;
-  }
-  return n;
 }
 
 // Huff0 blocks (four rows each) a CTA: spread the batch over every SM
 int per_cta_for(int R) {
   const int blocks = (R + 3) / 4;
-  return std::max(1, std::min(kMaxBlocks, (blocks + sm_count() - 1) / sm_count()));
+  return std::max(1, std::min(kMaxBlocks, (blocks + stage::sm_count() - 1) / stage::sm_count()));
 }
 
 int x1_ctas(int R, int per_cta) { return (R + 4 * per_cta - 1) / (4 * per_cta); }
@@ -503,6 +485,6 @@ extern "C" int huf_decode_config(int R, int* cfg) {
   cfg[2] = static_cast<int>(smem);
   cfg[3] = resident;
   cfg[4] = x1_ctas(std::max(R, 1), per_cta);
-  cfg[5] = sm_count();
+  cfg[5] = stage::sm_count();
   return static_cast<int>(rc);
 }

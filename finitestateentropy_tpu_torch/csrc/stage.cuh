@@ -1,6 +1,7 @@
 // Staging a group's stream into shared memory with cp.async, shared by the
 // decode kernels (rans_decode.cu, rans_decode_flat.cu, turbo_fse_decode.cu,
-// fse_decode.cu).
+// fse_decode.cu, huf_decode.cu), and the SM count the compat kernels size
+// their launches by.
 //
 // ChunkRing is the flat-rank decodes' stream cache.  Those wires ship no
 // per-step cursors (v1, v0) or ship them but may lie about them (totals), so
@@ -18,8 +19,21 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_runtime.h>
 
 namespace stage {
+
+// the current device's SM count, read once
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 1;
+  }
+  return n;
+}
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));

@@ -101,9 +101,9 @@ _HUF_ATOMICS = ("""\
     if (sh + width > 32) atomicOr(wb + w + 1, __funnelshift_l(lo, hi, sh));
     if (sh + width > 64) atomicOr(wb + w + 2, hi >> (32 - sh));
 """, "    if (lo == 0xFFFFFFFFu && sh == 31) wb[w] = hi;\n")
-_HUF_REQUEST = ("      if (kRingOn) w.request();", "")
-_HUF_BELOW = ('          : "r"(a), "r"(static_cast<int>(take && inside)));',
-              '          : "r"(a), "r"(0));')
+_HUF_REQUEST = ("      w.request();\n#pragma unroll", "#pragma unroll")
+_HUF_BELOW = ('        : "r"(a), "r"(static_cast<int>(take && inside)));',
+              '        : "r"(a), "r"(0));')
 
 # name -> (source, [(old, new), ...]); substitutions apply in order
 VARIANTS = {
@@ -230,10 +230,10 @@ VARIANTS = {
     "huf_decode_inflight1": (HUF_DEC, [("constexpr int kInFlight = 2;",
                                         "constexpr int kInFlight = 1;")]),
     # `below` loaded every step, not only when a refill took its low half
-    "huf_decode_below_every": (HUF_DEC, [("    fetch_below<kRingOn>(take);",
-                                          "    fetch_below<kRingOn>(true);")]),
+    "huf_decode_below_every": (HUF_DEC, [("    fetch_below(take);",
+                                          "    fetch_below(true);")]),
     # every stream through the first design's loop (global tables, read_bits)
-    "huf_decode_global": (HUF_DEC, [("  if (!fast[pb]) {", "  if (true) {")]),
+    "huf_decode_global": (HUF_DEC, [("  if (!fast[pb] || bitpos", "  if (true || bitpos")]),
     # parts taken out: the lookups' bank conflicts (every lane in banks of
     # its own, wrong entries), the ring's requests, its reads, both, the
     # output stores

@@ -807,6 +807,8 @@ def _huf_gpu_batch(batch: str):
         return (*_huf_full()[:7], 8200)
     if batch == "rows4":            # rows 0, 4, 8 and 12 bytes into a unit
         return (*_huf_full()[:7], 8196)
+    if batch == "seg_odd":          # decoded into rows of max_seg + 8 bytes
+        return _huf_full()
     if batch == "wave_2048":        # 64 MiB in 32 KiB blocks: one wave of CTAs
         return _huf_wave(2048)
     if batch == "ragged_301":       # not a multiple of the blocks a CTA takes
@@ -821,13 +823,15 @@ def _huf_gpu_batch(batch: str):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch", ["small", "full_32k", "rows8", "rows4", "wave_2048",
-                                   "ragged_301", "mixed_tables", "nb20", "n_edge"])
+@pytest.mark.parametrize("batch", ["small", "full_32k", "rows8", "rows4", "seg_odd",
+                                   "wave_2048", "ragged_301", "mixed_tables", "nb20",
+                                   "n_edge"])
 def test_cuda_huf_kernels_equal_plain(cuda, batch):
     """The encode, and the X1 and X2 decodes of its output in each of
     HUF_CASES, against their plain versions on the card: small and whole
     32 KiB blocks, decode rows that start 4, 8 or 12 bytes into a 16-byte
-    unit, 2048 blocks of 32 KiB (one wave), 301 blocks (a ragged last CTA),
+    unit, output rows of a width that is no multiple of 16 (the X1 decode's
+    byte stores), 2048 blocks of 32 KiB (one wave), 301 blocks (a ragged last CTA),
     streams of a block with different tables or tableLogs and a tableLog
     past the table (the X1 decode's global path), a 20-bit code (the
     encode's first design), n = 0 to past max_block; corrupt streams, csize
@@ -849,7 +853,7 @@ def test_cuda_huf_kernels_equal_plain(cuda, batch):
     dts = {h: huf_read_dtable_x2(h)[0] for h in set(headers)}
     x2 = np.repeat(np.stack([huf_kernels.pack_dtable_x2(dts[h]) for h in headers]), 4, axis=0)
     tl2 = np.repeat(np.array([dts[h].table_log for h in headers], np.int32), 4)
-    max_seg = (max_block + 3) // 4
+    max_seg = (max_block + 3) // 4 + (8 if batch == "seg_odd" else 0)
     for case in HUF_CASES:
         st, cs, no = _huf_decode_case(streams, csize, nout, case, max_seg)
         args = (_t(st, cuda), _t(cs, cuda), _t(no, cuda))
@@ -858,7 +862,7 @@ def test_cuda_huf_kernels_equal_plain(cuda, batch):
         want = huf_kernels.huf_decode_4x1_batch_plain(*x1)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (case, "x1")
-        if case == "clean" and batch in ("full_32k", "rows8", "rows4", "wave_2048"):
+        if case == "clean" and batch in ("full_32k", "rows8", "rows4", "seg_odd", "wave_2048"):
             assert not _np(got[1]).any()
         elif case == "corrupt" and batch == "small":
             assert _np(got[1])[[3, 8]].all() and not _np(got[1])[[0, 5]].any()
@@ -867,6 +871,8 @@ def test_cuda_huf_kernels_equal_plain(cuda, batch):
         want = huf_kernels.huf_decode_4x2_batch_plain(*x2a)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (case, "x2")
+        if case == "corrupt" and batch == "small":
+            assert _np(got[1])[8]
     n = len(HUF_CASES)
     assert {k: v for k, v in rk.launches.items() if v} == {
         "huf_encode_4x": 1, "huf_decode_4x:x1": n, "huf_decode_4x:x2": n}
