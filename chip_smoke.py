@@ -8,9 +8,9 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 Phases, one result line each:
   1. the GPU's name and power limit (nvidia-smi);
   2. build the CUDA sources of finitestateentropy_tpu_torch/csrc (nvcc, one
-     process per source, started together); the FSE kernels' launch shape
-     at 2048 blocks (blocks a CTA, shared memory, CTAs an SM holds,
-     registers);
+     process per source, started together); the compat kernels' launch
+     shapes at 2048 blocks, and the X2 decode's at 256 and 2048 (blocks a
+     CTA, shared memory, CTAs an SM holds, registers);
   3. every kernel entry in every mode against its plain PyTorch version on
      the GPU, bit for bit, on 3-group batches (1 MiB groups; 512 Ki-symbol
      U16 groups): the encodes (rans_encode2 byte / pair / quad in the
@@ -24,7 +24,7 @@ Phases, one result line each:
      ragged, an n = 2 and a 13-byte block, one endMark byte zeroed, and
      the FSE pair on two whole 32 KiB blocks (one decoded from an eighth
      of its stream) and on payloads past a 600-byte buffer;
-  4. twenty-six paths, each with the launch counts set to 0 just before it
+  4. twenty-eight paths, each with the launch counts set to 0 just before it
      and read just after; twelve through the entry points
      (turbo_compress_device / turbo_decompress_device,
      turbo16_compress_device / turbo16_decompress_device):
@@ -67,9 +67,13 @@ Phases, one result line each:
                           sharded_turbo_decode steps, one flat byte encode
                           and one decode per mode and shard; the frames must
                           equal the single-device ones;
-     four more:
+     five more:
        mesh_u16_pareto    sharded_turbo16_roundtrip over the mesh on the u16
                           path's 64 groups: the flat u16 encode and v2:u16;
+       u16codec_turbo     models.U16Codec(wire="turbo") on 8 groups of each
+                          path's symbols: one encode and one v2 decode of
+                          each alphabet; its frames are those paths' first
+                          8 groups;
        dryrun_multichip   parallel/dryrun.py over the mesh's devices: every
                           sharded round trip on 8-128 KiB groups, and a
                           mixed frame through the entry points with mesh set;
@@ -110,6 +114,8 @@ Phases, one result line each:
                           device frame of the first 4 MiB;
        huf_x2_p80_8MiB    the X2 decoder on that 8 MiB Huff0 frame (tables
                           built on the host): one x2 launch;
+       huf_x2_p80_64MiB   the X2 decoder on the 64 MiB Huff0 frame: one x2
+                          launch of 2048 blocks (a kernels row of its own);
        compat_mixed_8MiB  8 x 1 MiB of Proba80, Proba14, random and
                           one-byte groups and a ragged tail through FSE,
                           Huff0 and AutoTpuCodec, each decoded by its magic;
@@ -210,6 +216,7 @@ V0_OPS_PER_STEP = 20
 FLAT_LANE_OPS = 1
 FLAT_SCAN_ADDS = 31
 V0_MIB = 16                    # the v0 path: its only encoder is the numpy twin
+U16CODEC_GROUPS = 8            # U16Codec's turbo path: 8 groups of each alphabet
 RES_SMALL_MIB = 8              # the resident path's totals and ratio pieces
 RES_TLOG = 10                  # the resident speed mode's tableLog
 MIXED_GROUPS = 16              # the resident mixed path: 16 x 1 MiB
@@ -249,9 +256,10 @@ TWIN_DECODE_MIB = 4
 # container 3, the word test 1.  Huff0 decode x1: the available bits (min,
 # max) 2, the field read 8, the index shift 2, byte and nb reads 2, the
 # store 1, the cursor 1; x2 a lookup the same plus its fields (nb, length,
-# last test) 4, a lookup giving 1-2 bytes: 18 a byte.
+# last test) 4, 20 a lookup, and a store for each second byte: counted on
+# the lookups this run's streams take (huf_decode_4x2_lookups).
 COMPAT_OPS = {"fse_encode": 16, "fse_decode": 17, "huf_encode_4x": 10,
-              "huf_decode_4x:x1": 16, "huf_decode_4x:x2": 18}
+              "huf_decode_4x:x1": 16, "huf_decode_4x:x2": 20}
 COMPAT_KERNEL = {  # key -> (CUDA source, JAX function, file:line in finitestateentropy_tpu/)
     "fse_encode": ("fse_encode.cu", "ops/fse_kernels.py:138"),
     "fse_decode": ("fse_decode.cu", "ops/fse_kernels.py:58"),
@@ -260,6 +268,9 @@ COMPAT_KERNEL = {  # key -> (CUDA source, JAX function, file:line in finitestate
     "huf_decode_4x:x2": ("huf_decode.cu", "ops/huf_kernels.py:210")}
 FLAT_THREADS = 512             # a group's block in csrc/rans_decode_flat.cu
 V0_THREADS = 256               # and in csrc/turbo_fse_decode.cu
+# paths timed as rows of their own beside the first path that launches a
+# kernel: C5 at the 64 MiB frame's 2048 blocks (its first row: 256)
+EXTRA_ROWS = ("huf_x2_p80_64MiB",)
 KERNEL_LINE = {  # entry -> TPU kernel, file:line in finitestateentropy_tpu/turbo/
     "rans_encode2": "rans_kernels.py:607", "rans_encode2_flat": "rans_kernels.py:473",
     "rans_encode": "rans_kernels.py:303", "rans_decode": "rans_kernels.py:182",
@@ -440,32 +451,45 @@ def run_cli(argv: list[str]) -> dict:
     return json.loads(r.stderr.strip().splitlines()[-1])
 
 
-def occupancy(built: dict, blocks: int, kernels: dict) -> dict:
-    """The launch shape of each compat kernel in `kernels` ({source:
-    argument of its <source>_config C entry}) for `blocks` blocks: blocks a
-    CTA, threads, dynamic (the Huff0 encode: static) shared bytes, the CTAs
-    an SM can hold by cudaOccupancyMaxActiveBlocksPerMultiprocessor, CTAs,
-    SMs; whether the CTAs fit the card at once, and the kernels' registers
-    as ptxas gave them."""
+def kernel_registers(ptxas: list[str]) -> dict:
+    """{kernel function (mangled): registers} from a source's ptxas lines."""
     import re
 
+    out, fn = {}, None
+    for ln in ptxas:
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        fn = m.group(1) if m else fn
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out[fn] = int(m.group(1))
+    return out
+
+
+def occupancy(built: dict, blocks: int, kernels: dict) -> dict:
+    """The launch shape of each compat kernel in `kernels` ({label:
+    (source, kernel function, argument of the <label>_config C entry)}) for
+    `blocks` blocks: blocks a CTA, threads, dynamic (the Huff0 encode:
+    static) shared bytes, the CTAs an SM can hold by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, CTAs, SMs; whether the
+    CTAs fit the card at once, and the kernel's registers as ptxas gave
+    them."""
     from finitestateentropy_tpu_torch.turbo._build import load
 
     out = {"blocks": blocks}
     keys = ("blocks_per_cta", "threads", "smem_bytes", "ctas_per_sm", "ctas", "sms")
-    for name, arg in kernels.items():
-        fn = getattr(load(name), f"{name}_config")
+    for label, (source, kernel, arg) in kernels.items():
+        fn = getattr(load(source), f"{label}_config")
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         cfg = (ctypes.c_int * len(keys))()
         rc = fn(arg, cfg)
-        require(rc == 0 and cfg[3] >= 1, f"{name}_config: cudaError_t {rc}, {list(cfg)}")
+        require(rc == 0 and cfg[3] >= 1, f"{label}_config: cudaError_t {rc}, {list(cfg)}")
         d = dict(zip(keys, cfg))
-        ptxas = built.get(name, {}).get("ptxas", [])
+        ptxas = built.get(source, {}).get("ptxas", [])
         d["one_wave"] = d["ctas"] <= d["ctas_per_sm"] * d["sms"]
-        d["registers"] = [int(r) for ln in ptxas for r in re.findall(r"Used (\d+) registers", ln)]
-        d["ptxas"] = ptxas or "not built in this run"
-        out[name] = d
+        d["registers"] = ([r for f, r in kernel_registers(ptxas).items() if kernel in f]
+                          if ptxas else "not built in this run")
+        out[label] = d
     return out
 
 
@@ -646,7 +670,10 @@ def compat_decode_batches(codec, items, shards: int = 1) -> list[dict]:
         tl4 = torch.from_numpy(np.repeat(d["x2_tlog"], 4)).to(DEV)
         tables = (torch.from_numpy(np.repeat(d["x2_tbl"], 4, axis=0)).to(DEV),)
         arg = tables[0]
-        steps = int(hk.huf_decode_4x2_lookups(*head, tl4, arg, d["max_seg"]).max())
+        lookups = hk.huf_decode_4x2_lookups(*head, tl4, arg, d["max_seg"])
+        steps, n_look = int(lookups.max()), int(lookups.sum())
+        # 20 a lookup, and a store for each byte a lookup writes second
+        ops = COMPAT_OPS[key] * n_look + max(int(nout.sum()) - n_look, 0)
     else:
         key, wrapper, plain = ("huf_decode_4x:x1", hk.huf_decode_4x1_batch,
                                hk.huf_decode_4x1_batch_plain)
@@ -654,10 +681,11 @@ def compat_decode_batches(codec, items, shards: int = 1) -> list[dict]:
         bt, nt = hk.build_dtables_x1(t["weights"], tl4.view(B, 4)[:, 0])
         tables = (bt.repeat_interleave(4, dim=0), nt.repeat_interleave(4, dim=0))
         arg, steps = tables, int(nout.max())
+        ops = COMPAT_OPS[key] * int(nout.sum())
     full = (*head, tl4, arg, d["max_seg"])
     tbl_bytes = sum(x.numel() * x.element_size() for x in tables)
     return [dict(key=key, ident=compat_ident(key, d), G=B, shards=shards, chain="lookup",
-                 steps=steps, ops=COMPAT_OPS[key] * int(nout.sum()),
+                 steps=steps, ops=ops,
                  run=partial(wrapper, *full), plain=partial(plain, *full),
                  kernel=partial(hk._decode_kernel, *head, tl4, tables, d["max_seg"],
                                 key.endswith("x2")),
@@ -860,13 +888,22 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "built": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
                                 for k, v in built.items()}}), flush=True)
-    # C1 / C2 and C3 / C4 at the 64 MiB compat paths' 2048 blocks (the X1
-    # decode's config takes its rows, four a block)
+    # C1 / C2 and C3 / C4 at the 64 MiB compat paths' 2048 blocks (the
+    # decodes' configs take their rows, four a block), C5 at the x2 path's
+    # 256 blocks and at 2048
     nblk = MAIN_MIB * GROUP // COMPAT_BLOCK
     print(json.dumps({"phase": "fse_occupancy", "gpu": gpu, **occupancy(
-        built, nblk, {"fse_encode": nblk, "fse_decode": nblk})}), flush=True)
+        built, nblk, {"fse_encode": ("fse_encode", "fse_encode_kernel", nblk),
+                      "fse_decode": ("fse_decode", "fse_decode_kernel", nblk)})}), flush=True)
     print(json.dumps({"phase": "huf_occupancy", "gpu": gpu, **occupancy(
-        built, nblk, {"huf_encode": nblk, "huf_decode": 4 * nblk})}), flush=True)
+        built, nblk, {"huf_encode": ("huf_encode", "huf_encode_kernel", nblk),
+                      "huf_decode": ("huf_decode", "huf_decode_kernel_x1", 4 * nblk)})}),
+          flush=True)
+    x2_blk = COMPAT_MIB * GROUP // COMPAT_BLOCK
+    print(json.dumps({"phase": "huf_x2_occupancy", "gpu": gpu, **{
+        f"blocks_{b}": occupancy(built, b, {"huf_decode_x2": (
+            "huf_decode", "huf_decode_kernel_x2", 4 * b)})["huf_decode_x2"]
+        for b in (x2_blk, nblk)}}), flush=True)
 
     def encode_batches(p: Piece, entry: str | None = None) -> list[dict]:
         """Every encode batch of p, planned and staged as the compress
@@ -1174,6 +1211,35 @@ def main() -> int:
     path_batches = {"mesh_u16_pareto": lambda: [dict(b, shards=m) for b in (
         encode_batches(u16_speed, "rans_encode2_flat")
         + decode_batches(u16_speed, blobs[("u16_pareto_64MiB", 0)], 1))]}
+
+    # U16Codec's turbo wire (models/u16_codec.py) on a stream of each
+    # alphabet: its frames are the first groups of the u16 and u16x paths'
+    # speed frames
+    from finitestateentropy_tpu_torch.models import U16Codec
+
+    codec_streams = [u16_syms[:U16CODEC_GROUPS * GROUP16],
+                     u16x_syms[:U16CODEC_GROUPS * GROUP16]]
+    u16c = U16Codec(wire="turbo")
+    rk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u16c_blobs = u16c.compress_streams(codec_streams)
+    secs = [time.perf_counter() - t0]
+    t0 = time.perf_counter()
+    back = u16c.decompress_streams([(b, len(s)) for b, s in zip(u16c_blobs, codec_streams)])
+    torch.cuda.synchronize()
+    e2e_s["u16codec_turbo/0"] = secs + [time.perf_counter() - t0]
+    launches["u16codec_turbo"] = {k: v for k, v in rk.launches.items() if v}
+    require(all(np.array_equal(s, o) for s, o in zip(codec_streams, back)),
+            "u16codec_turbo: the round trip")
+    for blob, path in zip(u16c_blobs, ("u16_pareto_64MiB", "u16x_pareto_16MiB")):
+        ref = blobs[(path, 0)]
+        require(ref.startswith(blob) and len(api.parse_groups16(blob)) == U16CODEC_GROUPS,
+                f"u16codec_turbo: the frames differ from {path}'s first groups")
+    codec_pieces = [Piece("turbo16", s, GROUP16, dict(steptots=True)) for s in codec_streams]
+    path_batches["u16codec_turbo"] = lambda: [
+        b for p, blob in zip(codec_pieces, u16c_blobs)
+        for b in encode_batches(p) + decode_batches(p, blob, 0)]
 
     def dryrun_batches() -> list[dict]:
         """The batches of dryrun_multichip(m) on the dry run's own inputs
@@ -1524,6 +1590,12 @@ def main() -> int:
         frames8["huf"], recording(x2_codec.decompress_blocks, x2_items))) == prefix,
         "huf_x2_p80_8MiB: the round trip")
     path_batches["huf_x2_p80_8MiB"] = lambda: compat_decode_batches(x2_codec, x2_items)
+    # and on the whole 64 MiB frame: 2048 blocks, timed as a row of its own
+    x2_items64 = []
+    require(counted("huf_x2_p80_64MiB", lambda: fio.decompress_bytes(
+        compat_blobs["huf"], recording(x2_codec.decompress_blocks, x2_items64))) == main_data,
+        "huf_x2_p80_64MiB: the round trip")
+    path_batches["huf_x2_p80_64MiB"] = lambda: compat_decode_batches(x2_codec, x2_items64)
 
     # mixed blocks: Proba80, Proba14, random, one repeated byte, a ragged
     # tail; FSE, Huff0 and the auto pick, each frame decoded by its magic
@@ -1649,6 +1721,10 @@ def main() -> int:
         "fse_p80_64MiB": {"fse_encode": 1, "fse_decode": 1},
         "huf_p80_64MiB": {"huf_encode_4x": 1, "huf_decode_4x:x1": 1},
         "huf_x2_p80_8MiB": {"huf_decode_4x:x2": 1},
+        "huf_x2_p80_64MiB": {"huf_decode_4x:x2": 1},
+        # U16Codec's turbo wire: the entry points' speed frames at windows=0
+        "u16codec_turbo": {"rans_encode:u16": 1, "rans_decode_v2:u16": 1,
+                           "rans_encode:u16x": 1, "rans_decode_v2:u16x": 1},
         "compat_mixed_8MiB": {
             "fse_encode": 1 + (chosen == "fse"), "fse_decode": 1 + (chosen == "fse"),
             "huf_encode_4x": 1 + (chosen == "huf"), "huf_decode_4x:x1": 1 + (chosen == "huf")},
@@ -1751,7 +1827,7 @@ def main() -> int:
                 out += decode_batches(p, blobs[(name, k)], windows)
         return out
 
-    shapes, path_errs = {}, {}
+    shapes, extra_shapes, path_errs = {}, {}, {}
     plain_of = {}       # compat ident -> the plain version's outputs and ms
     for name in [*paths, *path_batches]:
         perr, counts = {}, {}
@@ -1770,6 +1846,8 @@ def main() -> int:
             counts[key] = counts.get(key, 0) + b.get("shards", 1)
             if "kernel" in b:                   # timed at the first path's shapes
                 shapes.setdefault(key, (name, b))
+                if name in EXTRA_ROWS:
+                    extra_shapes[f"{key} ({b['G']} blocks)"] = (key, name, b)
         torch.cuda.synchronize()
         require(counts == launches[name],
                 f"{name}: launches {launches[name]} != batches {counts}")
@@ -1966,8 +2044,8 @@ def main() -> int:
                       "chain_step_ns": chain}), flush=True)
 
     rows = []
-    for key in rk.launches:                    # every entry, every mode
-        path, b = shapes[key]
+    for key, row_name, (path, b) in ([(k, k, shapes[k]) for k in rk.launches]  # every entry-mode
+                                     + [(k, n, (p, b)) for n, (k, p, b) in extra_shapes.items()]):
         ms = cuda_ms(b["kernel"], 20)
         dev_ms = device_ms(b["kernel"], KERNEL_FN[source_of(key).rsplit("/", 1)[1]], 5)
         # a compat batch's plain version at the path's shapes runs for
@@ -1976,7 +2054,7 @@ def main() -> int:
         nbytes = b["nbytes"](b["kernel"]())
         old = ({"chain_bound_ms_1024": b["steps"] * chain["flat_1024"] * 1e-6}
                if b["chain"] in ("flat", "v0") else {})
-        rows.append({"name": key, "route": "cuda", "source": source_of(key),
+        rows.append({"name": row_name, "route": "cuda", "source": source_of(key),
                      "replaces": replaces(key),
                      "path": path, "launches": launches.get(path, {}).get(key, 0),
                      "launches_by_path": {p: c.get(key, 0) for p, c in launches.items()},

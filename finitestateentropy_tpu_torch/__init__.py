@@ -12,13 +12,14 @@ equal to the originals.
 
 Package layout (each module's counterpart has the same path in the JAX
 package):
-  refimpl/   hist, normalization, NCount and the FSE / Huff0 / zlibh host
-             twins (reference-exact host code).
-  utils/     debug logging, XXH32 and the probaGenerator twin.
+  refimpl/   hist, normalization, NCount and the FSE / Huff0 / zlibh /
+             FSE_U16 host twins (reference-exact host code).
+  utils/     debug logging, XXH32, XXH64 and the probaGenerator twin.
   ops/       device ops: the resident pipeline's (hist, norm, rANS tables)
              and the compat codecs' (bit I/O, FSE tables, the FSE and Huff0
              kernel wrappers).
-  models/    the compat codecs (FseTpuCodec, HufTpuCodec, AutoTpuCodec).
+  models/    the compat codecs (FseTpuCodec, HufTpuCodec, AutoTpuCodec)
+             and the U16 stream codec (U16Codec).
   io/        the .fse frame layer and resumable jobs.
   parallel/  the device mesh and the sharded steps.
   turbo/     the TurboRANS wires (rans.py and format.py: byte; pair.py:
@@ -31,6 +32,15 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper runs its plain PyTorch version.
 """
 
-from .config import FSE_DEFAULT_TABLELOG, FSE_MAX_TABLELOG, FSE_MIN_TABLELOG
+from .config import (
+    FSE_MAX_TABLELOG,
+    FSE_DEFAULT_TABLELOG,
+    FSE_MIN_TABLELOG,
+    FSE_MAX_SYMBOL_VALUE,
+    HUF_TABLELOG_MAX,
+    HUF_TABLELOG_DEFAULT,
+    HUF_SYMBOLVALUE_MAX,
+    CodecConfig,
+)
 
 __version__ = "0.1.0"

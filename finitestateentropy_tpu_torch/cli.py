@@ -30,6 +30,8 @@ from .config import FIO_BLOCKSIZEID_DEFAULT
 
 FSE_EXTENSION = ".fse"
 TURBO_EXTENSION = ".tfse"
+RANS_TABLELOG_DEFAULT = 11  # turbo/rans.py RANS_TABLELOG (import-free: the CLI
+#                             loads torch only for the paths that need it)
 
 
 def _block_size_to_id(bsize: int) -> int:
@@ -263,14 +265,13 @@ def _turbo_main(args, verbosity: int) -> int:
     device = "cuda"
     if args.device == "host":
         from . import native
-        from .turbo.rans import RANS_TABLELOG
 
         if native.available():
             encode = not (args.decode or args.test)
             if encode and args.ratio and args.table_log and \
-                    args.table_log != RANS_TABLELOG:
+                    args.table_log != RANS_TABLELOG_DEFAULT:
                 print(f"warning: ratio-mode native frames are tableLog "
-                      f"{RANS_TABLELOG}; ignoring -M {args.table_log}",
+                      f"{RANS_TABLELOG_DEFAULT}; ignoring -M {args.table_log}",
                       file=sys.stderr)
             return _turbo_native_main(args, verbosity)
         device = "cpu"

@@ -7,6 +7,8 @@ byte-compatibility.
 """
 from __future__ import annotations
 
+import dataclasses
+
 # --- FSE (byte symbols) --- reference lib/fse.h:636-683
 FSE_MAX_MEMORY_USAGE = 14
 FSE_DEFAULT_MEMORY_USAGE = 13
@@ -73,3 +75,21 @@ BT_COMPRESSED = 0
 BT_RAW = 1
 BT_RLE = 2
 BT_CRC = 3
+
+
+@dataclasses.dataclass
+class CodecConfig:
+    """Runtime configuration for the batched device codec (the JAX
+    package's CodecConfig, field for field)."""
+
+    codec: str = "fse"            # "fse" | "huf" | "u16" | "auto"
+    block_size_id: int = FIO_BLOCKSIZEID_DEFAULT
+    table_log: int = 0            # 0 = codec default
+    max_symbol_value: int = 0     # 0 = codec default
+    # device / mesh knobs
+    batch_blocks: int = 0         # 0 = all blocks in one device batch
+    mesh_shape: tuple = ()        # () = single device; e.g. (8,) data-parallel
+
+    @property
+    def block_size(self) -> int:
+        return 1 << (10 + self.block_size_id)

@@ -1,16 +1,17 @@
-"""Codec pipelines ("model families"): FSE, Huff0 and auto-select.
+"""Codec pipelines ("model families"): FSE, Huff0, FSE_U16 and auto-select.
 
 The port of the JAX package's models/.  FSE / Huff0 / auto expose the batch
 interface the frame layer (io/frame.py) consumes:
   compress_blocks(list[bytes]) -> list[BlockResult]
   decompress_blocks(list[(payload, regenerated_size)]) -> list[bytes]
-The device codecs cross the host-device boundary once per batch.  The JAX
-package's stream-oriented U16 codec (models/u16_codec.py, FSE_U16) is not
-ported yet.
+The device codecs cross the host-device boundary once per batch.  FSE_U16
+is stream-oriented (no frame format exists for 16-bit symbols, reference
+fseU16.h:40-55): see u16_codec.U16Codec.
 """
 from .fse_codec import FseTpuCodec
 from .huf_codec import HufTpuCodec
 from .select import choose_codec
+from .u16_codec import U16Codec
 
 
 class AutoTpuCodec:

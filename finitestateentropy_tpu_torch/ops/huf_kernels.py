@@ -14,9 +14,11 @@ streams.  Here:
   stream, the four streams of a block over one table in shared memory: a
   serial chain of dtLog-bit lookups (byte, nbBits) through a register bit
   window; the kernel writes every output byte;
-* ``huf_decode_4x2_batch`` -> csrc/huf_decode.cu mode x2, one thread a
-  stream: the same with one- or two-byte entries (pack_dtable_x2), the
-  last-symbol rule of HUF_decodeLastSymbolX2 included.
+* ``huf_decode_4x2_batch`` -> csrc/huf_decode.cu mode x2, x1's shape:
+  the same with one- or two-byte entries (pack_dtable_x2, staged as three
+  byte planes), the bytes staged in shared memory and stored 16 at a time,
+  the last-symbol rule of HUF_decodeLastSymbolX2 in a tail loop; the
+  kernel writes every output byte.
 
 ``build_dtables_x1`` (the X1 fill ordered by (weight, symbol)) is torch
 tensor ops on the inputs' device; ``pack_dtable_x2`` packs a table built
@@ -274,13 +276,11 @@ def _decode_x2(streams_u8, csize, n_out, table_log, tbl, max_seg: int):
 def _decode_kernel(streams_u8, csize, n_out, table_log, tables, max_seg: int,
                    x2: bool):
     """The decode kernel (csrc/huf_decode.cu) on one device's tensors: mode
-    x1 takes (byte[R, T], nb[R, T]) uint8, mode x2 (tbl[R, T],) int32.  The
-    x1 kernel writes every output byte; the x2 kernel only those it
-    decodes."""
+    x1 takes (byte[R, T], nb[R, T]) uint8, mode x2 (tbl[R, T],) int32.
+    Both modes write every output byte."""
     R, S = streams_u8.shape
     dev = streams_u8.device
-    alloc = torch.zeros if x2 else torch.empty
-    out = alloc((R, max_seg), dtype=torch.uint8, device=dev)
+    out = torch.empty((R, max_seg), dtype=torch.uint8, device=dev)
     err = torch.empty((R,), dtype=torch.bool, device=dev)
     st = streams_u8.contiguous()
     if st.data_ptr() % 4:           # the kernel reads the stream as u32 words

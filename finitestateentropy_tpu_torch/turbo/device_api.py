@@ -42,7 +42,8 @@ from ..ops.hist import hist_count_masked
 from ..ops.norm import fse_normalize_batch
 from ..ops.rans_tables import pack_rans_ctables_batch, pack_rans_dtable_batch
 from ..refimpl.ncount import fse_write_ncount
-from .api import (DEFAULT_GROUP, _hrows_cap, _round8, check_byte_args,
+# MAX_GROUP: the JAX module's name for the group bound check_byte_args holds
+from .api import (DEFAULT_GROUP, MAX_GROUP, _hrows_cap, _round8, check_byte_args,  # noqa: F401
                   group_spans, parse_groups, stage_decode_batch)
 from .format import TURBO_STEP_SYMS, _pad_n
 from .rans import (FLAG_RAW, FLAG_RLE, FLAG_ROWS4, FLAG_STEPTOTS, FLAG_TOTALS,

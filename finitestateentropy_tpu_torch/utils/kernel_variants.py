@@ -16,7 +16,8 @@ build/kernel_variants/ (one process per variant, started together),
 launched through its C entry on the batches of chip_smoke.py's paths
 (ratio mode on 64 x 1 MiB of Proba80, the totals wire on 3 MiB, v1 pair
 frames on 8 MiB, v0 frames on 16 x 1 MiB, the FSE and Huff0 codecs' 2048
-blocks of 32 KiB of Proba80), held against the plain version and timed
+blocks of 32 KiB of Proba80; the X2 decode's variants on the first 256 of
+those blocks and on all 2048), held against the plain version and timed
 (CUDA events, mean of 20 launches, the better of two rounds).  Prints one
 JSON line: {"gpu", "ms": {"variant/case": ms}, "exact": {"variant/case":
 bool}}.  Exits 1 without a CUDA device.
@@ -28,6 +29,7 @@ import json
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from ..turbo import api
@@ -104,6 +106,90 @@ _HUF_ATOMICS = ("""\
 _HUF_REQUEST = ("      w.request();\n#pragma unroll", "#pragma unroll")
 _HUF_BELOW = ('        : "r"(a), "r"(static_cast<int>(take && inside)));',
               '        : "r"(a), "r"(0));')
+
+_X2_GLOBAL = ("const bool on_global = !fast[pb]", "const bool on_global = true || !fast[pb]")
+# The X2 kernel's first design: a thread a stream, 32 threads a
+# block, the packed table and the stream in global memory (x2_global's
+# loop; its wrapper zero-filled the output, so the kernel zeroes the rest)
+_X2_FIRST = [('extern "C" int huf_decode_launch(', """\
+namespace {
+__global__ void huf_decode_kernel_x2_first(const uint8_t* __restrict__ streams, int S,
+                                           const int32_t* __restrict__ csize,
+                                           const int32_t* __restrict__ n_out,
+                                           const int32_t* __restrict__ tlog,
+                                           const int32_t* __restrict__ tbl0, int T,
+                                           uint8_t* __restrict__ out, int max_seg,
+                                           bool* __restrict__ err, int R) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const uint8_t* row = streams + static_cast<size_t>(r) * S;
+  bool bad;
+  const int bitpos = compat::initial_bitpos(row, S, csize[r], &bad);
+  uint8_t* orow = out + static_cast<size_t>(r) * max_seg;
+  int bytes;
+  const int c = x2_global(reinterpret_cast<const uint32_t*>(row), S / 4 - 1, bitpos, tlog[r],
+                          tbl0 + static_cast<size_t>(r) * T, T, n_out[r], max_seg, orow, &bytes);
+  for (int z = min(bytes, max_seg); z < max_seg; ++z) orow[z] = 0;
+  err[r] = n_out[r] > 0 && (c != 0 || bytes != n_out[r] || bad);
+}
+}  // namespace
+
+extern "C" int huf_decode_launch("""), ("""\
+  if (x2) {
+    const int per_cta = per_cta_for(R, kX2Blocks);""", """\
+  if (x2) {
+    huf_decode_kernel_x2_first<<<(R + 31) / 32, 32, 0, s>>>(
+        st, S, static_cast<const int32_t*>(csize), static_cast<const int32_t*>(n_out),
+        static_cast<const int32_t*>(tlog), static_cast<const int32_t*>(tbl0), T,
+        static_cast<uint8_t*>(out), max_seg, static_cast<bool*>(err), R);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (false) {
+    const int per_cta = per_cta_for(R, kX2Blocks);""")]
+
+
+# The X2 table as u32 entries nbBits | (length-1) << 7 | seq << 8 (16 KiB
+# a block) in place of the three byte planes: the lookup reads the word,
+# the bytes come from its upper half
+_X2_U32 = [
+    ("constexpr int kTable2 = 3 * kSlot;", "constexpr int kTable2 = 4 * kSlot;"),
+    ("""\
+    *at = (__funnelshift_r(lo, hi, x) & mask) | tbase;
+    const uint32_t e = smem[*at];""", """\
+    *at = (__funnelshift_r(lo, hi, x) & mask) * 4 | tbase;
+    const uint32_t e = *reinterpret_cast<const uint32_t*>(smem + *at);"""),
+    ("""\
+  *b0 = smem[at + kSlot];
+  *b1 = smem[at + 2 * kSlot];""", """\
+  const uint32_t e = *reinterpret_cast<const uint32_t*>(smem + at);
+  *b0 = e >> 8;
+  *b1 = e >> 16;"""),
+    ("""\
+  dst[i] = static_cast<uint8_t>(nl);
+  dst[kSlot + i] = static_cast<uint8_t>(e);
+  dst[2 * kSlot + i] = static_cast<uint8_t>(e >> 8);""",
+     "  reinterpret_cast<uint32_t*>(dst)[i] = nl | (e & 0xFFFFu) << 8;"),
+    ("""\
+        *reinterpret_cast<uint32_t*>(dst + i) = nl;
+        *reinterpret_cast<uint32_t*>(dst + kSlot + i) = gather_byte(v, 0);
+        *reinterpret_cast<uint32_t*>(dst + 2 * kSlot + i) = gather_byte(v, 1);""", """\
+        x2_put(dst, i, nl & 0xFF, v.x);
+        x2_put(dst, i + 1, (nl >> 8) & 0xFF, v.y);
+        x2_put(dst, i + 2, (nl >> 16) & 0xFF, v.z);
+        x2_put(dst, i + 3, nl >> 24, v.w);""")]
+
+
+def _x2_blocks(n: int) -> tuple:
+    return ("constexpr int kX2Blocks = 16;", f"constexpr int kX2Blocks = {n};")
+
+
+def _x2_batch(n: int) -> tuple:
+    return ("constexpr int kX2Batch = 32;", f"constexpr int kX2Batch = {n};")
+
+
+def _x2_lanes(n: int) -> tuple:
+    return ("constexpr int kX2Lanes = 16;", f"constexpr int kX2Lanes = {n};")
+
 
 # name -> (source, [(old, new), ...]); substitutions apply in order
 VARIANTS = {
@@ -215,14 +301,14 @@ VARIANTS = {
                                            f"constexpr int kBatch = {n};")]) for n in (16, 32)},
     # a request as kUnits predicated copies, not a loop
     "huf_decode_request_unrolled": (HUF_DEC, [(
-        "    for (int u = 0; u < kUnits && low > want && low >= 4; ++u) {\n"
+        "    for (int u = 0; u < G::units && low > want && low >= 4; ++u) {\n"
         "      low -= 4;\n"
-        "      stage::cp_async16(ring + ((low + lead) & (kRing - 1)), words + low);\n"
+        "      stage::cp_async16(ring + ((low + lead) & (G::ring - 1)), words + low);\n"
         "    }",
         "#pragma unroll\n"
-        "    for (int u = 0; u < kUnits; ++u) {\n"
+        "    for (int u = 0; u < G::units; ++u) {\n"
         "      const bool p = low > want && low >= 4;\n"
-        "      stage::cp_async16_if(p, ring + ((low - 4 + lead) & (kRing - 1)), "
+        "      stage::cp_async16_if(p, ring + ((low - 4 + lead) & (G::ring - 1)), "
         "words + max(low - 4, 0));\n"
         "      low = p ? low - 4 : low;\n"
         "    }")]),
@@ -247,17 +333,51 @@ VARIANTS = {
     "huf_decode_no_store": (HUF_DEC, [(
         "        o128[(i + h) / kUnroll] = make_uint4(q[0], q[1], q[2], q[3]);",
         "        if ((q[0] & q[1] & q[2] & q[3]) == ~0u) o128[0] = make_uint4(q[0], 0, 0, 0);")]),
+    # the X2 decode (launched with x2 = 1; X2_CASES): as committed; every
+    # stream through the first design's loop in this launch shape, or the
+    # first design's own kernel and launch; blocks a CTA and the lanes of
+    # a chain warp (4: a block's streams in a warp of their own); the steps
+    # a ring request; the table as u32 entries nbBits | (length-1) << 7 |
+    # seq << 8 (16 KiB a block: 8 blocks a CTA)
+    "huf_decode_x2": (HUF_DEC, []),
+    "huf_decode_x2_global": (HUF_DEC, [_X2_GLOBAL]),
+    "huf_decode_x2_first": (HUF_DEC, _X2_FIRST),
+    **{f"huf_decode_x2_b{b}": (HUF_DEC, [_x2_blocks(b)]) for b in (8, 4)},
+    **{f"huf_decode_x2_lanes{n}": (HUF_DEC, [_x2_lanes(n)]) for n in (32, 8, 4)},
+    "huf_decode_x2_batch16": (HUF_DEC, [_x2_batch(16)]),
+    "huf_decode_x2_b8_batch64": (HUF_DEC, [_x2_blocks(8), _x2_batch(64)]),
+    "huf_decode_x2_b8_u32": (HUF_DEC, [_x2_blocks(8), *_X2_U32]),
+    # parts taken out: the output bytes' staging stores; rows 1-3's loads
+    # (each block's tables read once, not four times)
+    "huf_decode_x2_no_stage": (HUF_DEC, [(
+        "        staged[p & (kStage - 1)] = static_cast<uint8_t>(b0);\n"
+        "        staged[(p + 1) & (kStage - 1)] = static_cast<uint8_t>(b1);\n", "")]),
+    "huf_decode_x2_one_row": (HUF_DEC, [
+        (f"        const uint4 v{k} = __ldg(reinterpret_cast<const uint4*>(t0 + o{k} + i));",
+         f"        const uint4 v{k} = v;") for k in (1, 2, 3)]),
 }
 TIMING_ONLY = ("flat_no_barrier", "flat_no_exchange", "flat_no_ring",
                "flat_no_table", "v0_no_barrier", "fse_encode_no_place",
                "fse_encode_no_zero", "fse_encode_stage_only", "fse_encode_chain_alone",
                "fse_decode_no_refill_load", "fse_decode_no_store", "huf_encode_no_place",
                "huf_decode_no_conflict", "huf_decode_no_request", "huf_decode_no_below",
-               "huf_decode_chain_alone", "huf_decode_no_store")
-# the cases each source is timed on
+               "huf_decode_chain_alone", "huf_decode_no_store", "huf_decode_x2_no_stage",
+               "huf_decode_x2_one_row")
+# the cases each source is timed on; the X2 variants' (HUF_DEC launched
+# with x2 = 1): the Huff0 codec's first 256 blocks (chip_smoke.py's x2
+# path) and all 2048
 CASES_OF = {FLAT: ("v1_byte_64", "totals_3", "v1_pair_8"), V0: ("v0_16",),
             FSE_ENC: ("fse_p80_2048",), FSE_DEC: ("fse_p80_2048", "fse_codec_2048"),
             HUF_ENC: ("huf_p80_2048",), HUF_DEC: ("huf_p80_2048",)}
+X2_CASES = ("huf_x2_256", "huf_x2_2048")
+
+
+def is_x2(name: str) -> bool:
+    return name.startswith("huf_decode_x2")
+
+
+def cases_of(name: str) -> tuple:
+    return X2_CASES if is_x2(name) else CASES_OF[VARIANTS[name][0]]
 
 
 def variant_source(name: str) -> str:
@@ -326,11 +446,13 @@ def _fse_cases(corpus: bytes) -> dict:
                                                                         max_out=d["max_out"]))}}
 
 
-def _huf_cases(corpus: bytes) -> dict:
+def _huf_cases(corpus: bytes, x2: bool) -> dict:
     """{"huf_p80_2048": {source: (launch arguments, the plain version's
     outputs)}}: the Huff0 codec's batch of 64 MiB in 32 KiB blocks, the
     encode staged by its encode_inputs and the X1 decode of its compressed
-    blocks by its decode_inputs (as chip_smoke.py's huf path stages them)."""
+    blocks by its decode_inputs (as chip_smoke.py's huf path stages them);
+    with x2 also "huf_x2_256" and "huf_x2_2048", the X2 decode of the first
+    256 blocks and of all 2048, staged by the x2 codec's decode_inputs."""
     from ..models.huf_codec import HufTpuCodec
     from ..ops import huf_kernels
 
@@ -348,13 +470,25 @@ def _huf_cases(corpus: bytes) -> dict:
     bt, nt = huf_kernels.build_dtables_x1(u["weights"], u["tlog"].view(B, 4)[:, 0])
     tables = (bt.repeat_interleave(4, dim=0), nt.repeat_interleave(4, dim=0))
     dec = (u["streams"], u["csize"], u["n_out"], u["tlog"], tables, d["max_seg"])
-    return {"huf_p80_2048": {HUF_ENC: (enc, huf_kernels.huf_encode_4x_batch_plain(*enc)),
-                             HUF_DEC: (dec, huf_kernels.huf_decode_4x1_batch_plain(*dec))}}
+    out = {"huf_p80_2048": {HUF_ENC: (enc, huf_kernels.huf_encode_4x_batch_plain(*enc)),
+                            HUF_DEC: (dec, huf_kernels.huf_decode_4x1_batch_plain(*dec))}}
+    if x2:      # the X2 decode of the first 256 blocks and of all of them
+        x2_codec = HufTpuCodec(decoder="x2")
+        for case, nblk in (("huf_x2_256", 256), ("huf_x2_2048", B)):
+            d2 = x2_codec.decode_inputs(items[:nblk])
+            v = [torch.from_numpy(np.ascontiguousarray(a)).to("cuda") for a in (
+                d2["streams"], d2["csize"], d2["n_out"], np.repeat(d2["x2_tlog"], 4),
+                np.repeat(d2["x2_tbl"], 4, axis=0))]
+            args = (*v[:4], (v[4],), d2["max_seg"])
+            out[case] = {HUF_DEC: (args, huf_kernels.huf_decode_4x2_batch_plain(
+                *v, d2["max_seg"]))}
+    return out
 
 
-def _cases(srcs) -> dict:
+def _cases(srcs, x2: bool) -> dict:
     """{case: (launch arguments, the plain version's outputs)} on the card
-    for the sources srcs; the FSE case by source."""
+    for the sources srcs (and the X2 cases with x2); the FSE and Huff0 cases
+    by source."""
     group = 1 << 20
     corpus = generate_proba(80, 64 * group)
 
@@ -386,12 +520,13 @@ def _cases(srcs) -> dict:
     if {FSE_ENC, FSE_DEC} & set(srcs):
         cases.update(_fse_cases(corpus))
     if {HUF_ENC, HUF_DEC} & set(srcs):
-        cases.update(_huf_cases(corpus))
+        cases.update(_huf_cases(corpus, x2))
     return cases
 
 
-def _launcher(lib, src: str, args):
-    """(launch(), outputs) of one variant on one case's inputs."""
+def _launcher(lib, src: str, args, x2: bool = False):
+    """(launch(), outputs) of one variant on one case's inputs (the Huff0
+    decode in mode x2 where x2 holds)."""
     entry = f"{src}_launch"
     fn = getattr(lib, entry)
     fn.argtypes = rk._SIGS[entry][1]
@@ -423,13 +558,14 @@ def _launcher(lib, src: str, args):
         call = (s_u8.data_ptr(), S, n.data_ptr(), val.data_ptr(), nb.data_ptr(), val.shape[1],
                 outs[0].data_ptr(), W, outs[1].data_ptr(), B, max_block, stream)
     elif src == HUF_DEC:
-        streams, csize, n_out, tl, (bt, nt), max_seg = args
+        streams, csize, n_out, tl, tables, max_seg = args
+        bt, nt = tables if not x2 else (tables[0], tables[0])
         R, S = streams.shape
         outs = (torch.empty((R, max_seg), dtype=torch.uint8, device="cuda"),
                 torch.empty((R,), dtype=torch.bool, device="cuda"))
         call = (streams.data_ptr(), S, csize.data_ptr(), n_out.data_ptr(), tl.data_ptr(),
-                bt.data_ptr(), nt.data_ptr(), bt.shape[1], 0, outs[0].data_ptr(), max_seg,
-                outs[1].data_ptr(), R, stream)
+                bt.data_ptr(), nt.data_ptr(), bt.shape[1], int(x2), outs[0].data_ptr(),
+                max_seg, outs[1].data_ptr(), R, stream)
     elif src == V0:
         (cs, tbl, init, st), t4 = args
         G = tbl.shape[0]
@@ -475,15 +611,15 @@ def main(argv: list[str]) -> int:
         return 1
     names = argv or list(VARIANTS)
     libs = build(names)
-    cases = _cases({VARIANTS[name][0] for name in names})
+    cases = _cases({VARIANTS[name][0] for name in names}, any(map(is_x2, names)))
     ms, exact = {}, {}
     for _round in range(2):
         for name in names:
             src = VARIANTS[name][0]
-            for case in CASES_OF[src]:
+            for case in cases_of(name):
                 args, want = (cases[case][src] if case.startswith(("fse_", "huf_"))
                               else cases[case])
-                launch, outs = _launcher(libs[name], src, args)
+                launch, outs = _launcher(libs[name], src, args, is_x2(name))
                 key = f"{name}/{case}"
                 print(key, file=sys.stderr, flush=True)
                 t = _ms(launch)

@@ -602,6 +602,30 @@ def _huf_alter_tables(batch, tlogs, byte_t, nb_t):
     return tl, bt, nt
 
 
+def _huf_alter_x2(batch, tl2, x2):
+    """The X2 tables of a batch, one row a stream: "x2_tables" gives block 0
+    dtLog 0 (a one-entry table), stream 2 of block 1 block 0's table,
+    stream 1 of block 2 dtLog 11, block 3 dtLog 11 on every row (below 12:
+    the shared form), block 4 dtLog 13 (past the 4096-entry table) and
+    block 5 an entry of nbBits 13 on every row, so the streams of blocks 1,
+    2, 4 and 5 decode from the global table.  numpy in, numpy out."""
+    tl, tb = tl2.copy(), x2.copy()
+    if batch == "x2_tables":
+        tl[0:4] = 0
+        tb[4 * 1 + 2] = x2[0]
+        tl[4 * 2 + 1] = 11
+        tl[4 * 3: 4 * 3 + 4] = 11
+        tl[4 * 4: 4 * 4 + 4] = 13
+        tb[4 * 5: 4 * 5 + 4, 7] = (x2[4 * 5, 7] & ~(0x3F << 16)) | (13 << 16)
+    return tl, tb
+
+
+def _huf_batch_nout(batch, nout, max_seg):
+    """The decode's n_out: max_seg on every stream in "nout_max_seg" (the
+    short blocks' streams then decode past their ends)."""
+    return np.full_like(nout, max_seg) if batch == "nout_max_seg" else nout
+
+
 def _huf_decode_case(streams, csize, nout, case, max_seg):
     """The decode's inputs in a case: "corrupt" flips a bit of stream 6,
     zeroes the endMark byte of stream 8 (a missing endMark), and gives
@@ -680,6 +704,59 @@ def test_huf_batch_decode_plain_equals_jax(huf_jax_batch, case):
     if case == "clean" and j["batch"] == "full_32k":
         assert not err_want.any()
         assert np.array_equal(out_want.reshape(2, -1), j["src"])
+
+
+@pytest.fixture(scope="module", params=["x2_tables", "x2_odd", "nout_max_seg"])
+def huf_x2_jax_batch(request):
+    """JAX's X2 decode, in each case, of the GPU test's X2 batches: tables
+    that differ within a block, dtLogs 0, 11 and 13, an nbBits of 13, odd
+    n_out on every stream, n_out equal to max_seg on every stream."""
+    import jax.numpy as jnp
+
+    from finitestateentropy_tpu.ops import huf_kernels as j_k
+
+    batch = request.param
+    src, ns, val, nb, headers, max_block, seg_bytes, row_bytes = _huf_gpu_batch(batch)
+    words, sizes = huf_kernels.huf_encode_4x_batch_plain(
+        _t(src), _t(ns), _t(val.astype(np.int32)), _t(nb.astype(np.int32)), max_block,
+        seg_bytes)
+    streams, csize, nout, _tl, _w = _huf_decode_inputs(_np(words).view(np.uint32), _np(sizes),
+                                                       ns, headers, row_bytes)
+    dts = {h: huf_read_dtable_x2(h)[0] for h in set(headers)}
+    x2 = np.repeat(np.stack([huf_kernels.pack_dtable_x2(dts[h]) for h in headers]), 4, axis=0)
+    tl2 = np.repeat(np.array([dts[h].table_log for h in headers], np.int32), 4)
+    tl2, x2 = _huf_alter_x2(batch, tl2, x2)
+    max_seg = (max_block + 3) // 4
+    nout = _huf_batch_nout(batch, nout, max_seg)
+    dec = {}
+    for case in HUF_CASES:
+        st, cs, no = _huf_decode_case(streams, csize, nout, case, max_seg)
+        out, err = j_k.huf_decode_4x2_batch(jnp.asarray(st), jnp.asarray(cs), jnp.asarray(no),
+                                            jnp.asarray(tl2), jnp.asarray(x2), max_seg=max_seg)
+        dec[case] = (st, cs, no, np.asarray(out), np.asarray(err))
+    return dict(batch=batch, src=src, ns=ns, tl2=tl2, x2=x2, max_seg=max_seg, dec=dec)
+
+
+@pytest.mark.parametrize("case", HUF_CASES)
+def test_huf_x2_batch_decode_plain_equals_jax(huf_x2_jax_batch, case):
+    """The plain X2 decode of the GPU test's X2 batches equals JAX's: the
+    inputs that send the kernel's blocks to its global loop or through its
+    shared form below dtLog 12, the last-symbol rule on every stream, n_out
+    equal to max_seg."""
+    j = huf_x2_jax_batch
+    st, cs, no, out_want, err_want = j["dec"][case]
+    out, err = huf_kernels.huf_decode_4x2_batch_plain(_t(st), _t(cs), _t(no), _t(j["tl2"]),
+                                                      _t(j["x2"]), j["max_seg"])
+    assert np.array_equal(_np(out), out_want) and np.array_equal(_np(err), err_want)
+    if case == "clean" and j["batch"] == "x2_odd":
+        assert (no % 2 == 1).all() and not err_want.any()
+        for k, n in enumerate(j["ns"]):
+            seg = (int(n) + 3) // 4
+            got = np.concatenate([out_want[4 * k + q, : (seg if q < 3 else n - 3 * seg)]
+                                  for q in range(4)])
+            assert np.array_equal(got, j["src"][k, :n])
+    elif case == "clean" and j["batch"] == "x2_tables":
+        assert err_want[[0, 4 * 4, 4 * 2 + 1]].all() and not err_want[4 * 6:].any()
 
 
 # ---------------------------------------------------------------------------
@@ -814,6 +891,11 @@ def _huf_gpu_batch(batch: str):
     if batch == "ragged_301":       # not a multiple of the blocks a CTA takes
         names = [HUF_NAMES[k % len(HUF_NAMES)] for k in range(301)]
         return (*_huf_inputs(names), S, (S + 3) // 4 + 64, 2 * S // 4)
+    if batch == "x2_odd":           # every stream's n_out odd: seg 1023, the 4th 1021
+        return (*_huf_arrays([P80[:S - 6], P14[:S - 6], P02[:S - 6]]), S,
+                (S + 3) // 4 + 64, 2 * S // 4)
+    if batch in ("x2_tables", "nout_max_seg"):
+        return _huf_batch("small")
     if batch == "nb20":             # a 20-bit code: the encode's first design
         src, ns, val, nb, headers, *rest = _huf_batch("small")
         top = int(np.argmax(np.bincount(src[2, : ns[2]], minlength=256)))
@@ -825,7 +907,7 @@ def _huf_gpu_batch(batch: str):
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch", ["small", "full_32k", "rows8", "rows4", "seg_odd",
                                    "wave_2048", "ragged_301", "mixed_tables", "nb20",
-                                   "n_edge"])
+                                   "n_edge", "x2_tables", "x2_odd", "nout_max_seg"])
 def test_cuda_huf_kernels_equal_plain(cuda, batch):
     """The encode, and the X1 and X2 decodes of its output in each of
     HUF_CASES, against their plain versions on the card: small and whole
@@ -834,9 +916,12 @@ def test_cuda_huf_kernels_equal_plain(cuda, batch):
     byte stores), 2048 blocks of 32 KiB (one wave), 301 blocks (a ragged last CTA),
     streams of a block with different tables or tableLogs and a tableLog
     past the table (the X1 decode's global path), a 20-bit code (the
-    encode's first design), n = 0 to past max_block; corrupt streams, csize
-    0 or past the row, n_out 0 or past max_seg, a cursor below bit 0 long
-    before the end."""
+    encode's first design), n = 0 to past max_block; X2 tables that differ
+    within a block, a dtLog of 0, 11 and 13 and an nbBits of 13 (the X2
+    decode's global path and its shared form below dtLog 12), odd n_out on
+    every stream (the last-symbol rule on each), n_out equal to max_seg on
+    every stream; corrupt streams, csize 0 or past the row, n_out 0 or past
+    max_seg, a cursor below bit 0 long before the end."""
     src, ns, val, nb, headers, max_block, seg_bytes, row_bytes = _huf_gpu_batch(batch)
     rk.reset_launches()
     enc = (_t(src, cuda), _t(ns, cuda), _t(val.astype(np.int32), cuda),
@@ -853,7 +938,9 @@ def test_cuda_huf_kernels_equal_plain(cuda, batch):
     dts = {h: huf_read_dtable_x2(h)[0] for h in set(headers)}
     x2 = np.repeat(np.stack([huf_kernels.pack_dtable_x2(dts[h]) for h in headers]), 4, axis=0)
     tl2 = np.repeat(np.array([dts[h].table_log for h in headers], np.int32), 4)
+    tl2, x2 = _huf_alter_x2(batch, tl2, x2)
     max_seg = (max_block + 3) // 4 + (8 if batch == "seg_odd" else 0)
+    nout = _huf_batch_nout(batch, nout, max_seg)
     for case in HUF_CASES:
         st, cs, no = _huf_decode_case(streams, csize, nout, case, max_seg)
         args = (_t(st, cuda), _t(cs, cuda), _t(no, cuda))
@@ -873,6 +960,8 @@ def test_cuda_huf_kernels_equal_plain(cuda, batch):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (case, "x2")
         if case == "corrupt" and batch == "small":
             assert _np(got[1])[8]
+        elif case == "clean" and batch in ("full_32k", "wave_2048", "x2_odd"):
+            assert not _np(got[1]).any()
     n = len(HUF_CASES)
     assert {k: v for k, v in rk.launches.items() if v} == {
         "huf_encode_4x": 1, "huf_decode_4x:x1": n, "huf_decode_4x:x2": n}

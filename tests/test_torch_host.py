@@ -641,3 +641,111 @@ def test_blocktypes_copy_equal():
         assert int(getattr(p_bt.BlockResult, ctor)().kind) == int(getattr(j_bt.BlockResult,
                                                                           ctor)().kind)
     assert p_bt.BlockResult.compressed(b"ab").data == b"ab"
+
+
+# ---------------------------------------------------------------------------
+# refimpl/fseu16.py and utils/xxhash64.py
+# ---------------------------------------------------------------------------
+
+
+def _u16_dist(seed: int, n: int, mod: int = 286) -> np.ndarray:
+    """tests/test_refimpl_u16.py's distance stream (log2-bucketed pareto)."""
+    rng = np.random.default_rng(seed)
+    return (rng.pareto(1.2, n) * 8).astype(np.uint16) % mod
+
+
+def _u16_equal(j_u16, p_u16, sym, **kw) -> None:
+    """fse_compress_u16 and the decode of its output: the same kind and
+    bytes, the same symbols back, or the same error (each package raises
+    its own errors.FSEError)."""
+    try:
+        jr = j_u16.fse_compress_u16(sym, **kw)
+    except Exception as e:                           # noqa: BLE001
+        with pytest.raises(Exception) as got:
+            p_u16.fse_compress_u16(sym, **kw)
+        assert (type(got.value).__name__, str(got.value)) == (type(e).__name__, str(e))
+        return
+    pr = p_u16.fse_compress_u16(sym, **kw)
+    assert (int(pr.kind), pr.data) == (int(jr.kind), jr.data)
+    if pr.data:
+        msv = kw.get("max_symbol_value") or 286
+        back = p_u16.fse_decompress_u16(pr.data, len(sym), max_symbol_value=max(msv, 286))
+        assert np.array_equal(back, j_u16.fse_decompress_u16(
+            jr.data, len(sym), max_symbol_value=max(msv, 286)))
+        assert np.array_equal(back, sym)
+
+
+@pytest.mark.parametrize("name", list(CORPORA))
+def test_fseu16_copy_equal(name):
+    """The U16 twin on the corpora read as byte symbols and as 12-bit
+    symbols (pairs of bytes), at the default and explicit tableLogs."""
+    import finitestateentropy_tpu.refimpl.fseu16 as j_u16
+    import finitestateentropy_tpu_torch.refimpl.fseu16 as p_u16
+
+    d = _corpus(name, 40000)
+    wide = ((d[0::2].astype(np.uint16) << 4) | (d[1::2] & 15)).astype(np.uint16)
+    for sym, kw in ((d.astype(np.uint16), {}), (d[:777].astype(np.uint16), {}),
+                    (wide, dict(max_symbol_value=4095)),
+                    (wide, dict(max_symbol_value=4095, table_log=13)),
+                    (wide, {})):                     # symbols past 286: raises
+        _u16_equal(j_u16, p_u16, sym, **kw)
+    jc = j_u16.count_u16(wide, 4095)
+    pc = p_u16.count_u16(wide, 4095)
+    assert np.array_equal(jc[0], pc[0]) and jc[1:] == pc[1:]
+
+
+def test_fseu16_copy_equal_on_u16_cases():
+    """tests/test_refimpl_u16.py's cases: its distance streams, the wide
+    alphabet, RLE, oversized symbols and garbage input to the decoder."""
+    import finitestateentropy_tpu.refimpl.fseu16 as j_u16
+    import finitestateentropy_tpu_torch.refimpl.fseu16 as p_u16
+
+    for seed, n in ((0, 20000), (1, 4097), (2, 100), (3, 65536), (9, 12345)):
+        _u16_equal(j_u16, p_u16, _u16_dist(seed, n))
+    rng = np.random.default_rng(7)
+    wide = rng.integers(0, 286, 30000, dtype=np.uint16)
+    wide[::3] = 5
+    _u16_equal(j_u16, p_u16, wide)
+    rle = p_u16.fse_compress_u16(np.full(1000, 77, np.uint16))
+    assert int(rle.kind) == int(j_u16.fse_compress_u16(np.full(1000, 77, np.uint16)).kind)
+    for sym, msv in ((np.array([5, 10, 300], np.uint16), 200),
+                     (np.array([5, 4000], np.uint16), 0)):
+        _u16_equal(j_u16, p_u16, sym, max_symbol_value=msv)
+    for _ in range(100):
+        g = rng.integers(0, 256, int(rng.integers(2, 200)), dtype=np.uint8).tobytes()
+        outs = []
+        for mod in (j_u16, p_u16):
+            try:
+                outs.append(mod.fse_decompress_u16(g, 4096))
+            except Exception as e:                   # noqa: BLE001
+                outs.append(f"{type(e).__name__}: {e}")
+        if isinstance(outs[0], str):
+            assert outs[0] == outs[1]
+        else:
+            assert np.array_equal(outs[0], outs[1])
+
+
+def test_xxhash64_copy_equal():
+    """utils/xxhash64.py: the oracle vectors of tests/data_xxh_vectors.txt
+    and the original's hashes of the corpora, with seeds."""
+    import finitestateentropy_tpu.utils.xxhash64 as j_xxh
+    import finitestateentropy_tpu_torch.utils.xxhash64 as p_xxh
+
+    vectors = (Path(__file__).parent / "data_xxh_vectors.txt").read_text()
+    buf, s = bytearray(1031), 2654435761
+    for i in range(len(buf)):
+        s = (s * 2654435761 + 2246822519) & 0xFFFFFFFF
+        buf[i] = (s >> 11) & 0xFF
+    checked = 0
+    for line in vectors.splitlines():
+        ln, seed, _h32, h64 = line.split()
+        assert p_xxh.xxh64(bytes(buf[: int(ln)]), int(seed)) == int(h64, 16)
+        checked += 1
+    assert checked == 33
+    assert p_xxh.xxh64(b"") == 0xEF46DB3751D8E999
+    for name in CORPORA:
+        for n in (0, 7, 31, 32, 4097, 65536):
+            d = _corpus(name)[:n]
+            for seed in (0, 1, (1 << 64) - 1):
+                assert p_xxh.xxh64(d, seed) == j_xxh.xxh64(d, seed)
+                assert p_xxh.xxh64(d.tobytes(), seed) == j_xxh.xxh64(d.tobytes(), seed)

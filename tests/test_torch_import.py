@@ -31,7 +31,8 @@ assert {pkg.__name__ + "." + m for m in (
     "cli", "config", "refimpl.bitstream", "refimpl.blocktypes", "refimpl.fse",
     "refimpl.huf", "refimpl.zlibh", "io.frame", "models", "models.select",
     "models.fse_codec", "models.huf_codec", "ops.bitio", "ops.fse_tables",
-    "ops.fse_kernels", "ops.huf_kernels", "parallel.dp")} <= names, sorted(names)
+    "ops.fse_kernels", "ops.huf_kernels", "parallel.dp", "refimpl.fseu16",
+    "utils.xxhash64", "models.u16_codec")} <= names, sorted(names)
 from finitestateentropy_tpu_torch.turbo.api import (turbo_compress_device,
                                                     turbo_decompress_device)
 from finitestateentropy_tpu_torch.turbo.rans import rans_compress
@@ -71,6 +72,21 @@ for codec in ("fse", "huf"):
     fr = fio.compress_bytes(data[:9000], codec, 2, comp)
     assert fr == fio.compress_bytes(data[:9000], codec, 2)
     assert fio.decompress_bytes(fr, dec) == data[:9000]
+# the U16 stream codec (compat and turbo wires) and XXH64, by the JAX
+# package's package-level names
+from finitestateentropy_tpu_torch import CodecConfig, HUF_TABLELOG_MAX
+from finitestateentropy_tpu_torch.models import U16Codec
+from finitestateentropy_tpu_torch.refimpl import fse_compress_u16, fse_decompress_u16
+from finitestateentropy_tpu_torch.utils import xxh32, xxh64
+assert CodecConfig().block_size == 32768 and HUF_TABLELOG_MAX == 12
+assert xxh64(b"") == 0xEF46DB3751D8E999 and xxh32(b"") == 0x02CC5D05
+sym = (np.frombuffer(data[:6000], np.uint8).astype(np.uint16) * 3) % 700
+r = fse_compress_u16(sym, max_symbol_value=int(sym.max()))
+assert np.array_equal(fse_decompress_u16(r.data, len(sym)), sym)
+for wire in ("compat", "turbo"):
+    c = U16Codec(wire=wire, device="cpu")
+    blobs = c.compress_streams([sym])
+    assert np.array_equal(c.decompress_streams([(blobs[0], len(sym))])[0], sym)
 print("ok")
 """
 
@@ -96,7 +112,8 @@ def test_sources_import_no_jax_package():
             "cli.py", "bitio.py", "fse_tables.py", "fse_kernels.py",
             "huf_kernels.py", "fse_codec.py", "huf_codec.py", "select.py",
             "frame.py", "dp.py", "fse.py", "huf.py", "zlibh.py",
-            "blocktypes.py", "bitstream.py"} <= {f.name for f in files}
+            "blocktypes.py", "bitstream.py", "fseu16.py", "xxhash64.py",
+            "u16_codec.py"} <= {f.name for f in files}
     offenders = [str(f.relative_to(REPO)) for f in files
                  if bad.search(f.read_text())]
     assert offenders == []
