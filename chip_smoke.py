@@ -8,9 +8,10 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 Phases, one result line each:
   1. the GPU's name and power limit (nvidia-smi);
   2. build the CUDA sources of finitestateentropy_tpu_torch/csrc (nvcc, one
-     process per source, started together); the compat kernels' launch
-     shapes at 2048 blocks, and the X2 decode's at 256 and 2048 (blocks a
-     CTA, shared memory, CTAs an SM holds, registers);
+     process per source, started together) and the native host library
+     (native/build.sh: the entry points' byte stats); the compat kernels'
+     launch shapes at 2048 blocks, and the X2 decode's at 256 and 2048
+     (blocks a CTA, shared memory, CTAs an SM holds, registers);
   3. every kernel entry in every mode against its plain PyTorch version on
      the GPU, bit for bit, on 3-group batches (1 MiB groups; 512 Ki-symbol
      U16 groups): the encodes (rans_encode2 byte / pair / quad in the
@@ -156,7 +157,17 @@ Phases, one result line each:
      each CUDA kernel's own device time (torch.profiler), beside the GPU's
      name and power limit; the flat-rank and v0 rows carry the chain bound
      of their former design, a 1024-thread block a group
-     (chain_bound_ms_1024), beside their own.
+     (chain_bound_ms_1024), beside their own; and the host prep's c_prep
+     with the native stats (api.prep_group) against the numpy prep
+     (prep_split, three calls each);
+  7. the bench (benchmarks/): fullbench.main over host stages 1 and 9 and
+     the device stages 200-209, 215 and 210-214 at their default sizes
+     (16 groups of 1 MiB; 64 blocks of 32 KiB), each stage's launches read
+     around its timing (its kernel and no plain version), one output of
+     each held against the same call with interpret=True (the TurboRANS
+     stages) or the host twin and the input (the compat stages); then the
+     CLI's -b -i2 in the -e, -h and -T modes on a file of 16 MiB of
+     Proba80, each line carrying the ratio of the port's own frames.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Any failure exits nonzero with no ok line,
 as does a machine without a CUDA device.
@@ -222,6 +233,18 @@ RES_TLOG = 10                  # the resident speed mode's tableLog
 MIXED_GROUPS = 16              # the resident mixed path: 16 x 1 MiB
 CLI_MIB = 8                    # the CLI path
 REPO = Path(__file__).resolve().parent
+# the benchmarks phase: fullbench's host stages 1 and 9 and its device
+# stages (stage -> the kernel key it launches; 202 and 203 are host work),
+# and the CLI's -b on a file of BENCH_FILE_MIB of Proba80
+BENCH_KERNEL = {200: "rans_encode2_flat:byte", 201: "rans_decode:byte",
+                204: "rans_decode_v2:byte", 205: "rans_encode:byte",
+                206: "rans_decode_w:byte", 207: "rans_encode2:byte",
+                208: "rans_decode_w:pair", 209: "rans_decode_w:quad",
+                215: "rans_encode2:quad", 210: "fse_encode", 211: "fse_decode",
+                212: "huf_encode_4x", 213: "huf_decode_4x:x1",
+                214: "huf_decode_4x:x2"}
+BENCH_STAGES = (1, 9, 202, 203, *BENCH_KERNEL)
+BENCH_FILE_MIB = 16
 # the CLI run as `python -m` runs it (runpy), in a child that then reports
 # its launch counts on its last line of stderr
 CLI_CHILD = """
@@ -442,13 +465,17 @@ def build_dir() -> Path:
     return d
 
 
-def run_cli(argv: list[str]) -> dict:
+def run_cli(argv: list[str], stderr: list | None = None) -> dict:
     """python -m finitestateentropy_tpu_torch.cli argv in a child process;
-    returns the child's launch counts.  Fails on a nonzero exit."""
+    returns the child's launch counts (and adds its other stderr lines to
+    stderr when given).  Fails on a nonzero exit."""
     r = subprocess.run([sys.executable, "-c", CLI_CHILD, *argv], cwd=REPO,
                        capture_output=True, text=True, timeout=600)
     require(r.returncode == 0, f"cli {argv}: exit {r.returncode}: {r.stderr[-2000:]}")
-    return json.loads(r.stderr.strip().splitlines()[-1])
+    lines = r.stderr.strip().splitlines()
+    if stderr is not None:
+        stderr.extend(lines[:-1])
+    return json.loads(lines[-1])
 
 
 def kernel_registers(ptxas: list[str]) -> dict:
@@ -833,6 +860,152 @@ def compat_small_cases() -> list[dict]:
     return cases
 
 
+def benchmarks_phase(gpu: str) -> dict:
+    """The port's bench (benchmarks/): fullbench.main on CUDA over host
+    stages 1 and 9 and every device stage, each stage's launch counts read
+    around its timing (every device stage launches its kernel and runs no
+    plain version), one output of each held against the same call with
+    interpret=True (the TurboRANS stages) or against the host twin and the
+    input (the compat stages); then the CLI's -b on a file of
+    BENCH_FILE_MIB of Proba80 in the -e, -h and -T modes, each line
+    carrying the ratio of the port's own frames.  Prints fullbench's lines
+    and returns the phase's record."""
+    import contextlib
+    import io
+    import re
+
+    from finitestateentropy_tpu_torch.benchmarks import fullbench as fb
+    from finitestateentropy_tpu_torch.models import get_batch_codec
+    from finitestateentropy_tpu_torch.ops import fse_kernels as fk, huf_kernels as hk
+    from finitestateentropy_tpu_torch.refimpl import fse, huf
+    from finitestateentropy_tpu_torch.turbo import api, kernels as v0
+    from finitestateentropy_tpu_torch.turbo import rans_kernels as rk
+    from finitestateentropy_tpu_torch.utils import generate_proba
+
+    t_phase = time.perf_counter()
+    # every plain version a wrapper can fall back to, counted while
+    # fullbench runs: none may run
+    plain_calls = {}
+    plains = [(rk, "rans_encode2_plain"), (rk, "rans_encode_plain"), (rk, "_decode_plain"),
+              (fk, "fse_encode_batch_plain"), (fk, "fse_decode_batch_plain"),
+              (hk, "huf_encode_4x_batch_plain"), (hk, "huf_decode_4x1_batch_plain"),
+              (hk, "huf_decode_4x2_batch_plain"), (v0, "turbo_fse_decode_plain")]
+    saved = {(m, n): getattr(m, n) for m, n in plains}
+
+    def counting(name, fn):
+        def run(*a, **k):
+            plain_calls[name] = plain_calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return run
+
+    per_stage = []                 # launch counts of each timed stage, in order
+
+    def recorded(timer):
+        def run(fn, payload, *a, **k):
+            rk.reset_launches()
+            rate = timer(fn, payload, *a, **k)
+            per_stage.append({k2: v for k2, v in rk.launches.items() if v})
+            return rate
+        return run
+
+    timers = fb._calibrated, fb._calibrated_device
+    fb._calibrated, fb._calibrated_device = (recorded(t) for t in timers)
+    for (m, n), fn in saved.items():
+        setattr(m, n, counting(n, fn))
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = fb.main([str(s) for s in BENCH_STAGES])
+    finally:
+        fb._calibrated, fb._calibrated_device = timers
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    require(rc == 0, f"fullbench exit {rc}")
+    lines = [re.match(r"^\s*(\d+) (.+?) +([\d.]+) MB/s$", ln) for ln in text.splitlines()]
+    require(all(lines) and [int(m.group(1)) for m in lines] == sorted(BENCH_STAGES),
+            f"fullbench printed {text!r}")
+    require(not plain_calls, f"fullbench ran plain versions: {plain_calls}")
+    stages = {}
+    for m, counts in zip(lines, per_stage):
+        num = int(m.group(1))
+        want = BENCH_KERNEL.get(num)
+        require(want is None and not counts or set(counts) == {want},
+                f"fullbench stage {num} launched {counts}, expected {want}")
+        stages[num] = {"name": m.group(2), "MBps": float(m.group(3)),
+                       "launches": counts}
+
+    # one output of each device stage against its plain version
+    t0 = time.perf_counter()
+    checked = {}
+    turbo = fb._turbo_stages(device=DEV)
+    for num, key in BENCH_KERNEL.items():
+        if num not in turbo:
+            continue
+        fn = turbo[num][1]
+        got, want = fn(), fn(True)
+        torch.cuda.synchronize()
+        if key.startswith("rans_encode"):
+            hw = torch.int16 if key.startswith("rans_encode2") else torch.int32
+            cs = got[2].cpu()
+            require(torch.equal(cs, want[2].cpu()), f"stage {num}: csize differs")
+            for g in range(cs.numel()):
+                n = int(cs[g])
+                require(torch.equal(got[0][g].reshape(-1).view(hw)[:n],
+                                    want[0][g].reshape(-1).view(hw)[:n]),
+                        f"stage {num}: group {g}'s stream words differ")
+            require(torch.equal(got[1], want[1]), f"stage {num}: finals differ")
+            err = 0
+        else:
+            require(not got[1].any() and not want[1].any(), f"stage {num}: err set")
+            require(torch.equal(got[0], want[0]), f"stage {num}: output differs")
+            err = int((got[0].long() - want[0].long()).abs().max())
+        checked[num] = {"vs": "interpret=True", "max_abs_err": err}
+    compat = fb._device_compat_stages(device=DEV)
+    # the stages' blocks: 64 of 32 KiB of Proba20 (stage 210's payload)
+    data = generate_proba(fb.P_DEFAULT, compat[210][2])
+    blocks = [data[i:i + COMPAT_BLOCK] for i in range(0, len(data), COMPAT_BLOCK)]
+    for num, twin in ((210, fse.fse_compress), (212, huf.huf_compress)):
+        res = compat[num][1]()
+        require([(r.kind.name, r.data) for r in res]
+                == [(r.kind.name, r.data) for r in map(twin, blocks)],
+                f"stage {num}: the blocks differ from the host twin's")
+        checked[num] = {"vs": "host twin", "max_abs_err": 0}
+    for num in (211, 213, 214):
+        require(compat[num][1]() == blocks, f"stage {num}: the decode differs from the input")
+        checked[num] = {"vs": "input", "max_abs_err": 0}
+    check_s = time.perf_counter() - t0
+
+    # the CLI's -b on a Proba80 file, each mode in a child process
+    t0 = time.perf_counter()
+    data = generate_proba(80, BENCH_FILE_MIB << 20)
+    blocks = [data[i:i + COMPAT_BLOCK] for i in range(0, len(data), COMPAT_BLOCK)]
+    ratio = {"-e": len(data) / sum(len(r.data) for r in get_batch_codec(
+                 "fse", block_size=COMPAT_BLOCK)[0](blocks)),
+             "-h": len(data) / sum(len(r.data) for r in get_batch_codec(
+                 "huf", block_size=COMPAT_BLOCK)[0](blocks)),
+             "-T": len(data) / len(api.turbo_compress_device(data, device=DEV))}
+    want_keys = {"-e": {"fse_encode", "fse_decode"},
+                 "-h": {"huf_encode_4x", "huf_decode_4x:x1"},
+                 "-T": {"rans_encode2:quad", "rans_decode_w:quad"}}
+    cli = {}
+    with tempfile.TemporaryDirectory(dir=build_dir()) as tmp:
+        path = Path(tmp) / f"p80_{BENCH_FILE_MIB}MiB"
+        path.write_bytes(data)
+        for flag in ("-e", "-h", "-T"):
+            err = []
+            counts = run_cli(["-b", "-i2", flag, str(path)], err)
+            require(len(err) == 1 and f"ratio {ratio[flag]:6.3f}" in err[0],
+                    f"cli -b {flag}: {err}, expected ratio {ratio[flag]:6.3f}")
+            require(set(counts) == want_keys[flag], f"cli -b {flag} launched {counts}")
+            cli[flag] = {"line": err[0], "ratio": ratio[flag], "launches": counts}
+    return {"phase": "benchmarks", "gpu": gpu, "fullbench": stages,
+            "checked": checked, "check_s": check_s, "blockbench": cli,
+            "blockbench_s": time.perf_counter() - t0,
+            "seconds": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -885,7 +1058,11 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     built = build_all()
+    # the native host library (api.prep_group's stats; g++, a few seconds)
+    from finitestateentropy_tpu_torch import native
+    native_built = native.available()
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
+                      "native_built": native_built,
                       "built": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
                                 for k, v in built.items()}}), flush=True)
     # C1 / C2 and C3 / C4 at the 64 MiB compat paths' 2048 blocks (the
@@ -935,7 +1112,8 @@ def main() -> int:
                 if entry == "rans_encode":          # the byte v1 encode
                     v1 = (*ins.values(), t4, hcap, False, tlog, st)
                     b.update(key="rans_encode:byte", stots=st, out_hw=4,
-                             run=partial(rk.rans_encode, *v1),
+                             run=partial(rk.rans_encode, *ins.values(), t4, hcap,
+                                         False, False, tlog, st),
                              plain=partial(rk.rans_encode_plain, *v1),
                              kernel=partial(rk._encode_kernel, *args, wire, False, st))
                 else:
@@ -943,7 +1121,8 @@ def main() -> int:
                     mf = dict(u16=wire == "pair", quad=wire == "quad", steptots=est)
                     b.update(key=f"rans_encode2{'' if rowloc else '_flat'}:{wire}",
                              stots=est,
-                             run=partial(rk.rans_encode2, *args, **mf, rowloc=rowloc),
+                             run=partial(rk.rans_encode2, *args[:5], tlog=tlog, **mf,
+                                         rowloc=rowloc),
                              plain=partial(rk.rans_encode2_plain, *args, **mf),
                              kernel=partial(rk._encode_kernel, *args, wire, True, est))
                 out.append(b)
@@ -957,11 +1136,12 @@ def main() -> int:
                 mode = "u16x" if big else "u16"
                 args = (*ins.values(), t2, hcap)
                 if packed:
-                    run = partial(rk.rans_encode2, *args, tlog, u16=True, steptots=st)
+                    run = partial(rk.rans_encode2, *args, tlog=tlog, u16=True,
+                                  steptots=st)
                     plain = partial(rk.rans_encode2_plain, *args, tlog, u16=True,
                                     steptots=st)
                 else:
-                    run = partial(rk.rans_encode, *args, True, tlog, st)
+                    run = partial(rk.rans_encode, *args, False, True, tlog, st)
                     plain = partial(rk.rans_encode_plain, *args, True, tlog, st)
                 out.append(dict(
                     key=f"{entry or 'rans_encode'}:{mode}", mode=mode, run=run,
@@ -1027,8 +1207,8 @@ def main() -> int:
                     run = partial(rk.rans_decode_w, *common, st, t4, hrows, nway,
                                   tlog, S, **flags)
                 else:
-                    run = partial(rk.rans_decode_v2, *common, st, t4, hrows, tlog,
-                                  **flags)
+                    run = partial(rk.rans_decode_v2, *common, st, t4, hrows,
+                                  tlog=tlog, **flags)
                 if kind == 1:
                     kernel = partial(rk._decode_flat_kernel, *common[1:3], common[3],
                                      common[0], cursors, t4, tlog, mode)
@@ -1199,7 +1379,7 @@ def main() -> int:
     rk.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ok, total = sharded_turbo16_roundtrip(mesh, t2, hcap16, tlog16)(
+    ok, total = sharded_turbo16_roundtrip(mesh, t2, hcap16, tlog=tlog16)(
         fc16, mg16, src16, dtbl16)
     ok, total = int(ok), int(total)
     e2e_s["mesh_u16_pareto/0"] = [time.perf_counter() - t0]
@@ -1284,7 +1464,8 @@ def main() -> int:
                                    ef.get("quad", False))
             out.append(dict(key=f"rans_encode2{'' if rowloc else '_flat'}:{mode}",
                             shards=shards, plain=lambda enc=enc: enc,
-                            run=partial(rk.rans_encode2, *args, **ef, rowloc=rowloc)))
+                            run=partial(rk.rans_encode2, *args[:5], tlog=tlog, **ef,
+                                        rowloc=rowloc)))
             stream, fin, csize, stots = enc
             nway, S = df.pop("nway", 0), df.pop("S", 0)
             if entry == "rans_decode":
@@ -1294,7 +1475,7 @@ def main() -> int:
             else:
                 dargs = (csize, dtbl, fin, stream, stots, steps, hcap)
                 run = (partial(rk.rans_decode_w, *dargs, nway, tlog, S, **df) if nway
-                       else partial(rk.rans_decode_v2, *dargs, tlog, **df))
+                       else partial(rk.rans_decode_v2, *dargs, tlog=tlog, **df))
                 plain = partial(rk.rans_decode_plain, *dargs, tlog, **df)
             dmode = rk._mode(df.get("u16", False), df.get("pair", False),
                              df.get("quad", False))
@@ -1456,14 +1637,15 @@ def main() -> int:
         rows = (torch.arange(len(items), device=DEV) if coded is None
                 else torch.tensor(coded, device=DEV))
         args = (gpu_ops[5], gpu_ops[6], gpu_ops[7], n_pad // 4096,
-                api._hrows_cap(n_pad), tlog)
+                api._hrows_cap(n_pad))
 
         def on_rows(out):
             return tuple(None if o is None else o[rows] for o in out)
+        enc = partial(rk.rans_encode2, *args, tlog=tlog, steptots=st, rowloc=True)
         return dict(key="rans_encode2:byte", shards=1,
-                    run=lambda: on_rows(rk.rans_encode2(*args, steptots=st, rowloc=True)),
-                    plain=lambda: on_rows(rk.rans_encode2_plain(*args, steptots=st)),
-                    outputs=lambda: rk.rans_encode2(*args, steptots=st, rowloc=True),
+                    run=lambda: on_rows(enc()),
+                    plain=lambda: on_rows(rk.rans_encode2_plain(*args, tlog, steptots=st)),
+                    outputs=enc,
                     norm_s=gpu_ops[4], tlog=tlog, t4=n_pad // 4096,
                     hcap=api._hrows_cap(n_pad))
 
@@ -1482,7 +1664,7 @@ def main() -> int:
                 stt = to_tensors(DEV, steptots=tots)["steptots"]
                 out.append(dict(
                     key="rans_decode_v2:" + ("totals" if kind == 1 else wire), shards=1,
-                    run=partial(rk.rans_decode_v2, *ins, stt, t4, hrows, tlog),
+                    run=partial(rk.rans_decode_v2, *ins, stt, t4, hrows, tlog=tlog),
                     plain=partial(rk.rans_decode_plain, *ins, stt, t4, hrows, tlog)))
             else:
                 out.append(dict(
@@ -1917,6 +2099,23 @@ def main() -> int:
     print(json.dumps({"phase": "host_breakdown", "gpu": gpu,
                       "path": "default_p80_64MiB", "seconds": st}), flush=True)
 
+    # c_prep with api.prep_group (the native stats, as the JAX package's
+    # main path takes them) against the numpy _prep_group every group ran
+    # before: three compress calls each, alternating; the frames are equal
+    prep_s = {"prep_group": [], "_prep_group": []}
+    native_prep = api.prep_group
+    for _ in range(3):
+        for name, fn in (("prep_group", native_prep), ("_prep_group", api._prep_group)):
+            api.prep_group, api.stage_seconds = fn, {}
+            blob = api.turbo_compress_device(main_data, device=DEV)
+            prep_s[name].append(api.stage_seconds["c_prep"])
+            api.prep_group, api.stage_seconds = native_prep, None
+            require(blob == b2, f"prep_split: {name}'s frames differ")
+    print(json.dumps({"phase": "prep_split", "gpu": gpu, "path": "default_p80_64MiB",
+                      "native_built": native_built, "c_prep_s": prep_s,
+                      "c_prep_median_s": {k: sorted(v)[1] for k, v in prep_s.items()}}),
+          flush=True)
+
     # the compat codecs end to end on the 64 MiB paths: compress /
     # decompress through the frame layer whole (the blocks, the batch
     # codec, the XXH32 checksum), median of 3 runs (the path's, one more,
@@ -1982,14 +2181,14 @@ def main() -> int:
     # the fused compress by stage, each stage alone (CUDA events, median of 3)
     counts64 = hist_count_masked(xp64, GROUP, lens64)
     prep64 = da._resident_prep(xp64, lens64, GROUP, RES_TLOG)
-    enc_args = (prep64[5], prep64[6], prep64[7], GROUP // 4096, api._hrows_cap(GROUP),
-                RES_TLOG)
+    enc_args = (prep64[5], prep64[6], prep64[7], GROUP // 4096, api._hrows_cap(GROUP))
     stage_ms = {
         "hist": median3(lambda: hist_count_masked(xp64, GROUP, lens64))[0],
         "norm": median3(lambda: fse_normalize_batch(counts64, lens64, RES_TLOG))[0],
         "prep (hist, norm, tables, pad and view)": median3(
             lambda: da._resident_prep(xp64, lens64, GROUP, RES_TLOG))[0],
-        "encode": median3(lambda: rk.rans_encode2(*enc_args, rowloc=True))[0]}
+        "encode": median3(lambda: rk.rans_encode2(*enc_args, tlog=RES_TLOG,
+                                                  rowloc=True))[0]}
 
     # where a whole rans_compress_resident call goes: torch.profiler, each
     # stage's host time (its record_function range) and its span on the
@@ -2069,6 +2268,8 @@ def main() -> int:
                       "library": "no single PyTorch call computes rANS, tANS or "
                                  "Huffman coding: library_ms is null"}),
           flush=True)
+
+    print(json.dumps(benchmarks_phase(gpu)), flush=True)
 
     print(f"gpu: {gpu}")
     print(json.dumps({"kernels": rows}))

@@ -17,8 +17,16 @@ CPU: the host twins for the compat codecs (the JAX CLI's default), the
 native host codec for -T when it is built (native.py) and otherwise the
 entry points on the CPU.  -z (zlib's Huffman coder) has no device codec
 in either package: it compresses only with --device host, and zlibh
-frames always decode through the twin.  Bench mode (-b) is not ported
-yet and exits 1.
+frames always decode through the twin.
+
+  python -m finitestateentropy_tpu_torch.cli -b [-e|-h|-z] [-T] [-i#] [-B#]
+      [--device host|cuda] file [file ...]
+
+Bench mode (-b, benchmarks/blockbench.py) prints a ratio and MB/s line per
+file to stderr, after an XXH32 round-trip check: the compat codec on CUDA
+at -B's chunk size (32 KiB by default), the TurboRANS entry points with
+-T, the host twins with --device host (it exits 1 without CUDA
+otherwise); -z runs the reference binary's bench when it is built.
 """
 from __future__ import annotations
 
@@ -160,8 +168,7 @@ def main(argv=None) -> int:
     verbosity = 2 + args.verbose - args.quiet
 
     if args.bench:
-        print("bench mode (-b) is not yet ported", file=sys.stderr)
-        return 1
+        return _bench_main(args)
     if args.rest:
         print("too many arguments (multi-file lists are bench-mode only, "
               "as in the reference CLI)", file=sys.stderr)
@@ -172,6 +179,31 @@ def main(argv=None) -> int:
     if args.turbo:
         return _turbo_main(args, verbosity)
     return _compat_main(args, verbosity)
+
+
+def _bench_main(args) -> int:
+    """Bench mode (JAX cli.py:158-170): benchmarks/blockbench over the file
+    list.  --device host times the host twins; CUDA (the default) the
+    compat codecs, or with -T the TurboRANS entry points."""
+    mode = "host" if args.device == "host" else "turbo" if args.turbo else "cuda"
+    if mode != "host":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("Error: bench mode runs on CUDA and no CUDA device is "
+                  "available; pass --device host to bench the host twins",
+                  file=sys.stderr)
+            return 1
+    from .benchmarks.blockbench import bench_files
+
+    # reference parity: -i accepts 1..9 only (commandline.c:228-233);
+    # bench mode takes a multi-file list
+    iters = min(max(args.iters, 1), 9)
+    files = ([args.input] + ([args.output] if args.output else [])
+             + list(args.rest))
+    return bench_files(files, codec=args.codec or "fse", iters=iters,
+                       block_size=_parse_bsize(args.bsize) if args.bsize else 32768,
+                       device=mode)
 
 
 def _compat_main(args, verbosity: int) -> int:

@@ -5,8 +5,9 @@ native/libturbofse.so, and builds it on demand with native/build.sh and the
 system compiler, under a file lock and into a temporary directory whose
 library then replaces the old name at once (so no process loads a
 half-written file); `available()` reports whether it could be loaded.  The
-native path is the CLI's host codec (`-T --device host`) and a fast oracle
-for the device kernels: its encoder emits ratio-mode (v1) groups
+native path is the CLI's host codec (`-T --device host`), the source of
+the entry points' per-group byte stats (`turbo/api.prep_group`, as in the
+JAX package), and a fast oracle for the device kernels: its encoder emits ratio-mode (v1) groups
 byte-identical to `rans_compress(..., steptots=False)` and speed-mode
 groups byte-identical to `rans_compress(...)`, and its decoder reads every
 byte, pair and quad frame.

@@ -10,10 +10,9 @@ sharded outputs onto the mesh's first device in group order.  JAX's
 collectives become reductions over the shards: ``psum`` of the compressed
 sizes a sum, ``pmax`` of the error flags a max, ``pmin`` of the checks a
 min.  Each function passes the placement, steptots setting and mode that
-its JAX original passes.  The four steps the entry points run
-(sharded_turbo_encode, _encode_v2, _decode, _decode_v2) take
-``interpret`` as their last parameter and pass it to the wrappers: True
-runs the plain PyTorch versions of the kernels.
+its JAX original passes, and takes the JAX function's parameters in
+its order; ``interpret`` goes on to the wrappers: True runs the plain
+PyTorch versions of the kernels and counts no launch.
 
 On a (dcn, ici) mesh across hosts (distributed.codec_mesh) each process
 runs the shards of its row only and the rows' results meet over the
@@ -109,8 +108,8 @@ def _ok(out, want, err) -> torch.Tensor:
 
 
 def sharded_turbo_encode(mesh: Mesh, t4_count: int, hrows_cap: int,
-                         tlog: int = 11, force_chunk: int = 0,
-                         interpret: bool = False):
+                         interpret: bool = False, tlog: int = 11,
+                         force_chunk: int = 0):
     """(fc[G,2,128], mg[G,2,128], srcw[G,t4*8,128]) -> (stream, final_states,
     csize_hw gathered; total_hw summed): the ratio-mode encode (flat
     placement, no step counts), whose frames equal the single-device
@@ -118,33 +117,33 @@ def sharded_turbo_encode(mesh: Mesh, t4_count: int, hrows_cap: int,
 
     def local(fc, mg, srcw):
         stream, fin, csize, _ = rans_encode2(fc, mg, srcw, t4_count, hrows_cap,
-                                             tlog, steptots=False,
-                                             force_chunk=force_chunk,
-                                             interpret=interpret)
+                                             interpret, tlog=tlog,
+                                             steptots=False,
+                                             force_chunk=force_chunk)
         return stream, fin, csize, csize.sum()
 
     return _step(mesh, local, ("sum",))
 
 
 def sharded_turbo_decode(mesh: Mesh, t4_count: int, hrows: int,
-                         tlog: int = 11, u16: bool = False, pair: bool = False,
-                         interpret: bool = False):
+                         interpret: bool = False, tlog: int = 11,
+                         u16: bool = False, pair: bool = False):
     """(csize[G], tbl, init[G,8,128], hws[G,srows,128] packed payload words)
     -> (out, err gathered; any_err the max over the shards): the v1
     decode."""
 
     def local(cs, tbl, init, hws):
-        out, err = rans_decode(cs, tbl, init, hws, t4_count, hrows, u16=u16,
-                               tlog=tlog, pair=pair, interpret=interpret)
+        out, err = rans_decode(cs, tbl, init, hws, t4_count, hrows, interpret,
+                               u16=u16, tlog=tlog, pair=pair)
         return out, err, err.abs().max()
 
     return _step(mesh, local, ("max",))
 
 
 def sharded_turbo_encode_v2(mesh: Mesh, t4_count: int, hrows_cap: int,
-                            tlog: int = 11, force_chunk: int = 0,
-                            u16: bool = False, rowloc: bool = False,
-                            quad: bool = False, interpret: bool = False):
+                            interpret: bool = False, tlog: int = 11,
+                            force_chunk: int = 0, u16: bool = False,
+                            rowloc: bool = False, quad: bool = False):
     """Speed-mode encode (FLAG_STEPTOTS wire): (fc, mg, srcw) -> (stream,
     final_states, csize_hw, steptots gathered; total_hw summed).  u16
     selects the 2-symbols-per-word source layout (U16 and pair wires);
@@ -152,131 +151,142 @@ def sharded_turbo_encode_v2(mesh: Mesh, t4_count: int, hrows_cap: int,
 
     def local(fc, mg, srcw):
         stream, fin, csize, stots = rans_encode2(
-            fc, mg, srcw, t4_count, hrows_cap, tlog, u16=u16, quad=quad,
-            force_chunk=force_chunk, rowloc=rowloc, interpret=interpret)
+            fc, mg, srcw, t4_count, hrows_cap, interpret, u16=u16, tlog=tlog,
+            force_chunk=force_chunk, rowloc=rowloc, quad=quad)
         return stream, fin, csize, stots, csize.sum()
 
     return _step(mesh, local, ("sum",))
 
 
 def sharded_turbo_decode_v2(mesh: Mesh, t4_count: int, hrows: int,
-                            tlog: int = 11, u16: bool = False,
-                            pair: bool = False, quad: bool = False,
-                            interpret: bool = False):
+                            interpret: bool = False, tlog: int = 11,
+                            u16: bool = False, pair: bool = False,
+                            quad: bool = False):
     """Speed-mode decode (shipped steptots): (csize, tbl, init, hws,
     steptots) -> (out, err gathered; any_err the max over the shards)."""
 
     def local(cs, tbl, init, hws, stots):
         out, err = rans_decode_v2(cs, tbl, init, hws, stots, t4_count, hrows,
-                                  tlog, u16=u16, pair=pair, quad=quad,
-                                  interpret=interpret)
+                                  interpret, tlog, u16=u16, pair=pair,
+                                  quad=quad)
         return out, err, err.abs().max()
 
     return _step(mesh, local, ("max",))
 
 
 def sharded_turbo_decode_w(mesh: Mesh, t4_count: int, hrows: int, nway: int,
-                           tlog: int = 11, S: int = 32, u16: bool = False,
+                           tlog: int = 11, S: int = 32,
+                           interpret: bool = False, u16: bool = False,
                            u16x: bool = False):
     """The windowed-decoder entry (rans_decode_w) over the mesh: the
     contract of sharded_turbo_decode_v2."""
 
     def local(cs, tbl, init, hws, stots):
         out, err = rans_decode_w(cs, tbl, init, hws, stots, t4_count, hrows,
-                                 nway, tlog, S, u16=u16, u16x=u16x)
+                                 nway, tlog, S, interpret, u16=u16, u16x=u16x)
         return out, err, err.abs().max()
 
     return _step(mesh, local, ("max",))
 
 
 def sharded_turbo_roundtrip_v2(mesh: Mesh, t4_count: int, hrows_cap: int,
-                               tlog: int = 11):
+                               interpret: bool = False, tlog: int = 11):
     """Speed-mode round trip (flat encode with step counts -> v2 decode):
     (fc, mg, srcw, dtbl) -> (ok = 1 when every shard decodes its source
     with no error, total_hw)."""
 
     def local(fc, mg, srcw, dtbl):
         stream, fin, csize, stots = rans_encode2(fc, mg, srcw, t4_count,
-                                                 hrows_cap, tlog)
+                                                 hrows_cap, interpret,
+                                                 tlog=tlog)
         out, err = rans_decode_v2(csize, dtbl, fin, stream, stots, t4_count,
-                                  hrows_cap, tlog)
+                                  hrows_cap, interpret, tlog)
         return _ok(out, srcw, err), csize.sum()
 
     return _step(mesh, local, ("min", "sum"))
 
 
 def sharded_turbo_roundtrip_w(mesh: Mesh, t4_count: int, hrows_cap: int,
-                              nway: int = 1, S: int = 32, tlog: int = 11):
+                              nway: int = 1, S: int = 32,
+                              interpret: bool = False, tlog: int = 11):
     """Row-local encode -> windowed decode entry (rans_decode_w) round trip:
     (fc, mg, srcw, dtbl) -> (ok, total_hw)."""
 
     def local(fc, mg, srcw, dtbl):
         stream, fin, csize, stots = rans_encode2(fc, mg, srcw, t4_count,
-                                                 hrows_cap, tlog, rowloc=True)
+                                                 hrows_cap, interpret,
+                                                 tlog=tlog, rowloc=True)
         out, err = rans_decode_w(csize, dtbl, fin, stream, stots, t4_count,
-                                 hrows_cap, nway, tlog, S)
+                                 hrows_cap, nway, tlog, S, interpret)
         return _ok(out, srcw, err), csize.sum()
 
     return _step(mesh, local, ("min", "sum"))
 
 
 def sharded_turbo16_roundtrip(mesh: Mesh, t2_count: int, hrows_cap: int,
-                              tlog: int = 11):
+                              interpret: bool = False, tlog: int = 11):
     """U16 speed-mode round trip (flat encode of u16 symbols <= 1023 ->
     v2 decode): (fc[G,8,128], mg, srcw, dtbl) -> (ok, total_hw)."""
 
     def local(fc, mg, srcw, dtbl):
         stream, fin, csize, stots = rans_encode2(fc, mg, srcw, t2_count,
-                                                 hrows_cap, tlog, u16=True)
+                                                 hrows_cap, interpret,
+                                                 u16=True, tlog=tlog)
         out, err = rans_decode_v2(csize, dtbl, fin, stream, stots, t2_count,
-                                  hrows_cap, tlog, u16=True)
+                                  hrows_cap, interpret, tlog, u16=True)
         return _ok(out, srcw, err), csize.sum()
 
     return _step(mesh, local, ("min", "sum"))
 
 
 def sharded_turbo_pair_roundtrip(mesh: Mesh, t2_count: int, hrows_cap: int,
-                                 tlog: int = 9):
+                                 interpret: bool = False, tlog: int = 9):
     """Pair-wire round trip (row-local encode over pair ids -> pair-mode v2
     decode): (fc, mg, srcw, dtbl) -> (out gathered: pair VALUES, which the
     caller checks; ok = no error flag; total_hw)."""
 
     def local(fc, mg, srcw, dtbl):
         stream, fin, csize, stots = rans_encode2(fc, mg, srcw, t2_count,
-                                                 hrows_cap, tlog, u16=True,
+                                                 hrows_cap, interpret,
+                                                 u16=True, tlog=tlog,
                                                  rowloc=True)
         out, err = rans_decode_v2(csize, dtbl, fin, stream, stots, t2_count,
-                                  hrows_cap, tlog, u16=True, pair=True)
+                                  hrows_cap, interpret, tlog, u16=True,
+                                  pair=True)
         return out, (err == 0).all().to(torch.int32), csize.sum()
 
     return _step(mesh, local, ("min", "sum"))
 
 
 def sharded_turbo_quad_roundtrip(mesh: Mesh, steps: int, hrows_cap: int,
-                                 tlog: int = 11):
+                                 interpret: bool = False, tlog: int = 11):
     """Quad-wire round trip (row-local spc=1 encode over quad ids -> quad-
     mode v2 decode): (fc, mg, srcw, dtbl) -> (out gathered: quad values;
     ok; total_hw)."""
 
     def local(fc, mg, srcw, dtbl):
         stream, fin, csize, stots = rans_encode2(fc, mg, srcw, steps,
-                                                 hrows_cap, tlog, quad=True,
-                                                 rowloc=True)
+                                                 hrows_cap, interpret,
+                                                 tlog=tlog, rowloc=True,
+                                                 quad=True)
         out, err = rans_decode_v2(csize, dtbl, fin, stream, stots, steps,
-                                  hrows_cap, tlog, quad=True)
+                                  hrows_cap, interpret, tlog, quad=True)
         return out, (err == 0).all().to(torch.int32), csize.sum()
 
     return _step(mesh, local, ("min", "sum"))
 
 
-def sharded_turbo_roundtrip(mesh: Mesh, t4_count: int, hrows_cap: int):
+def sharded_turbo_roundtrip(mesh: Mesh, t4_count: int, hrows_cap: int,
+                            interpret: bool = False):
     """Ratio-mode round trip (flat encode at tableLog 11, no step counts ->
     v1 decode): (fc, mg, srcw, dtbl) -> (ok, total_hw)."""
 
     def local(fc, mg, srcw, dtbl):
         stream, fin, csize, _ = rans_encode2(fc, mg, srcw, t4_count,
-                                             hrows_cap, 11, steptots=False)
-        out, err = rans_decode(csize, dtbl, fin, stream, t4_count, hrows_cap)
+                                             hrows_cap, interpret, tlog=11,
+                                             steptots=False)
+        out, err = rans_decode(csize, dtbl, fin, stream, t4_count, hrows_cap,
+                               interpret)
         return _ok(out, srcw, err), csize.sum()
 
     return _step(mesh, local, ("min", "sum"))

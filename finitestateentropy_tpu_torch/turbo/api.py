@@ -105,6 +105,18 @@ def _prep_group(chunk: np.ndarray, table_log: int = RANS_TABLELOG):
     return np.asarray(norm, np.int32), max_sv, ncount, mfs
 
 
+def prep_group(chunk: np.ndarray, table_log: int = RANS_TABLELOG):
+    """_prep_group through the native C library when it is built (the same
+    stats); _prep_group when it is not, or answers "fallback"."""
+    from .. import native
+
+    if native.available():
+        r = native.prep_group_native(bytes(chunk), table_log)
+        if r != "fallback":
+            return r  # stats tuple, or None for RLE groups
+    return _prep_group(chunk, table_log)
+
+
 @contextmanager
 def _stage(name: str, dev: torch.device):
     """Add the wall seconds of the enclosed stage to stage_seconds[name]
@@ -263,13 +275,13 @@ def plan_encode(data: bytes, group_size: int, table_log: int, pair: int = -1,
     """Cut data into groups, prep each one and pick its wire: returns (group
     count, {gi: frame} of the RLE and raw groups, {(wire, n_pad, tlog):
     [(gi, chunk, prep)]}: the encode kernel's batches).  prep is the
-    _prep_group tuple on the byte wire, the prep_pair_group /
+    prep_group tuple on the byte wire, the prep_pair_group /
     prep_quad_group dict on the others."""
     chunks = split_groups(np.frombuffer(data, dtype=np.uint8), group_size)
 
     def full_prep(ch):
         """(wire, prep), or (None, None) for an RLE / raw group."""
-        p = _prep_group(ch, table_log)
+        p = prep_group(ch, table_log)
         if p is None:
             return None, None
         pp = prep_pair_group(ch, pair_table_log) if pair != 0 else None
@@ -434,8 +446,8 @@ def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
             with _stage("c_kernel", dev):
                 stream, fin, csize, stots = rans_encode2(
                     ins["fc_tables"], ins["magic_tables"], ins["src_words"],
-                    t4, hcap, tlog, u16=wire == "pair", quad=wire == "quad",
-                    steptots=st, rowloc=rowloc, interpret=interpret)
+                    t4, hcap, interpret, u16=wire == "pair", tlog=tlog,
+                    steptots=st, rowloc=rowloc, quad=wire == "quad")
         else:
             with _stage("c_kernel", dev):
                 stream, fin, csize, stots = _mesh_encode(
@@ -482,11 +494,11 @@ def _mesh_encode(mesh_obj, wire: str, fc, mg, srcw, t4: int, hcap: int,
     padded = _pad_groups([fc, mg, srcw], mesh_obj.devices.size)
     if not steptots:
         stream, fin, csize, _tot = sharded_turbo_encode(
-            mesh_obj, t4, hcap, tlog, interpret=interpret)(*padded)
+            mesh_obj, t4, hcap, interpret, tlog)(*padded)
         return stream, fin, csize, None
-    step = sharded_turbo_encode_v2(mesh_obj, t4, hcap, tlog,
+    step = sharded_turbo_encode_v2(mesh_obj, t4, hcap, interpret, tlog,
                                    u16=wire == "pair", rowloc=rowloc,
-                                   quad=wire == "quad", interpret=interpret)
+                                   quad=wire == "quad")
     stream, fin, csize, stots, _tot = step(*padded)
     return stream, fin, csize, stots
 
@@ -612,8 +624,8 @@ def _decode_batch(wire: str, args, steptots, t4: int, hrows: int, tlog: int,
     args: (csize_hw, tables, init_states, streams) tensors."""
     is_pair = wire == "pair"
     if steptots is None:        # v1: rank and cursor chain in the kernel
-        return rans_decode(*args, t4, hrows, is_pair, tlog, False, is_pair,
-                           interpret=interpret)
+        return rans_decode(*args, t4, hrows, interpret, u16=is_pair,
+                           tlog=tlog, pair=is_pair)
     G = args[0].shape[0]
     modes = dict(u16=is_pair, pair=is_pair, quad=wire == "quad")
     w_nway, w_s = _window_dispatch(windows, t4, hrows, tlog, G,
@@ -622,9 +634,8 @@ def _decode_batch(wire: str, args, steptots, t4: int, hrows: int, tlog: int,
         debuglog(2, "turbo decode: rans_decode_w entry (windows=%d, t4=%d, "
                     "G=%d, wire=%s)", windows, t4, G, wire)
         return rans_decode_w(*args, steptots, t4, hrows, w_nway, tlog, w_s,
-                             **modes, interpret=interpret)
-    return rans_decode_v2(*args, steptots, t4, hrows, tlog, **modes,
-                          interpret=interpret)
+                             interpret, **modes)
+    return rans_decode_v2(*args, steptots, t4, hrows, interpret, tlog, **modes)
 
 
 def _mesh_decode(mesh_obj, wire: str, cs, tbl, init, hws, tots, t4: int,
@@ -637,13 +648,13 @@ def _mesh_decode(mesh_obj, wire: str, cs, tbl, init, hws, tots, t4: int,
     is_pair = wire == "pair"
     m = mesh_obj.devices.size
     if tots is None:
-        step = sharded_turbo_decode(mesh_obj, t4, hrows, tlog, u16=is_pair,
-                                    pair=is_pair, interpret=interpret)
+        step = sharded_turbo_decode(mesh_obj, t4, hrows, interpret, tlog,
+                                    u16=is_pair, pair=is_pair)
         outw, err, _any = step(*_pad_groups([cs, tbl, init, hws], m))
     else:
-        step = sharded_turbo_decode_v2(mesh_obj, t4, hrows, tlog, u16=is_pair,
-                                       pair=is_pair, quad=wire == "quad",
-                                       interpret=interpret)
+        step = sharded_turbo_decode_v2(mesh_obj, t4, hrows, interpret, tlog,
+                                       u16=is_pair, pair=is_pair,
+                                       quad=wire == "quad")
         outw, err, _any = step(*_pad_groups([cs, tbl, init, hws, tots], m))
     return outw, err
 
@@ -791,8 +802,8 @@ def turbo16_compress_device(symbols: np.ndarray, group_syms: int = 1 << 19,
         ins = to_tensors(dev, fc_tables=fc, magic_tables=mg, src_words=srcw)
         stream, fin, csize, stots = rans_encode(
             ins["fc_tables"], ins["magic_tables"], ins["src_words"],
-            n_pad // RANS16_STEP_SYMS, _round8(n_pad // 128 + 16), True, tlog,
-            steptots, interpret=interpret)
+            n_pad // RANS16_STEP_SYMS, _round8(n_pad // 128 + 16), interpret,
+            u16=True, tlog=tlog, steptots=steptots)
         csize = csize.cpu().numpy()
         # one halfword per entry: copy only the entries used
         stream = stream.reshape(G, -1)[:, : int(csize.max())].cpu().numpy()
@@ -897,15 +908,15 @@ def turbo16_decompress_device(blob: bytes, interpret: bool = False,
                                            False, True, big)
             if w_nway:
                 outw, err = rans_decode_w(*common, steptots, t2, hrows,
-                                          w_nway, tlog, w_s, u16=True,
-                                          u16x=big, interpret=interpret)
+                                          w_nway, tlog, w_s, interpret,
+                                          u16=True, u16x=big)
             else:
                 outw, err = rans_decode_v2(*common, steptots, t2, hrows,
-                                           tlog, u16=True, u16x=big,
-                                           interpret=interpret)
+                                           interpret, tlog, u16=True,
+                                           u16x=big)
         else:
-            outw, err = rans_decode(*common, t2, hrows, True, tlog, big,
-                                    interpret=interpret)
+            outw, err = rans_decode(*common, t2, hrows, interpret, u16=True,
+                                    tlog=tlog, u16x=big)
         err = err.cpu().numpy()
         if err.any():
             raise ValueError(

@@ -1,10 +1,10 @@
 """TurboRANS kernel wrappers: the CUDA kernels and their plain PyTorch versions.
 
 The entries keep the JAX package's names, output shapes and dtypes (i32
-holding u32 bit patterns) and argument order, less ``interpret``, which
-each entry takes as its last parameter instead: interpret=True runs the
-plain PyTorch version on the inputs' device (the counterpart of a Pallas
-kernel's body in the interpreter) and counts no launch:
+holding u32 bit patterns) and parameters in its order, ``interpret``
+included: interpret=True runs the plain PyTorch version on the inputs'
+device (the counterpart of a Pallas kernel's body in the interpreter) and
+counts no launch:
 
 * ``rans_encode2`` -> csrc/rans_encode.cu (replaces _rans_encode_rl_kernel,
   rowloc=True, and _rans_encode2_kernel, rowloc=False: the same wire, two
@@ -339,10 +339,10 @@ def _encode_kernel(fc_tables, magic_tables, src_words, t4_count: int,
 
 
 def rans_encode2(fc_tables, magic_tables, src_words, t4_count: int,
-                 hrows_cap: int, tlog: int = RANS_TABLELOG,
-                 u16: bool = False, quad: bool = False,
-                 steptots: bool = True, force_chunk: int = 0,
-                 rowloc: bool = False, interpret: bool = False):
+                 hrows_cap: int, interpret: bool = False, u16: bool = False,
+                 tlog: int = RANS_TABLELOG, steptots: bool = True,
+                 force_chunk: int = 0, rowloc: bool = False,
+                 quad: bool = False):
     """Packed-out encode of G groups: the speed and ratio wires, byte, pair
     (u16=True on 2-chunk tables), quad, u16 and u16x.
 
@@ -384,9 +384,8 @@ def rans_encode_plain(fc_tables, magic_tables, src_words, t4_count: int,
 
 
 def rans_encode(fc_tables, magic_tables, src_words, t4_count: int,
-                hrows_cap: int, u16: bool = False,
-                tlog: int = RANS_TABLELOG, steptots: bool = True,
-                interpret: bool = False):
+                hrows_cap: int, interpret: bool = False, u16: bool = False,
+                tlog: int = RANS_TABLELOG, steptots: bool = True):
     """The v1 encode (the JAX rans_encode entry) of G groups: byte symbols
     on 2-chunk tables (u16=False), u16 symbols <= 1023 on 8-chunk tables
     and <= 4095 on 32-chunk ones (u16=True).
@@ -596,9 +595,10 @@ def _decode(entry: str, csize_hw, tables, init_states, streams, steptots,
 
 
 def rans_decode_v2(csize_hw, tables, init_states, streams, steptots,
-                   t4_count: int, hrows: int, tlog: int = RANS_TABLELOG,
-                   u16: bool = False, u16x: bool = False, pair: bool = False,
-                   quad: bool = False, interpret: bool = False):
+                   t4_count: int, hrows: int, interpret: bool = False,
+                   tlog: int = RANS_TABLELOG, u16: bool = False,
+                   u16x: bool = False, pair: bool = False,
+                   quad: bool = False):
     """Speed-wire decode of G groups (the JAX resident-decoder entry).
 
     csize_hw[G] i32; tables[G, tch, 128] i32 (tables.pack_*_dtable; see
@@ -617,9 +617,9 @@ def rans_decode_v2(csize_hw, tables, init_states, streams, steptots,
 
 def rans_decode_w(csize_hw, tables, init_states, streams, steptots,
                   t4_count: int, hrows: int, nway: int,
-                  tlog: int = RANS_TABLELOG, S: int = 32, u16: bool = False,
-                  u16x: bool = False, pair: bool = False, quad: bool = False,
-                  interpret: bool = False):
+                  tlog: int = RANS_TABLELOG, S: int = 32,
+                  interpret: bool = False, u16: bool = False,
+                  u16x: bool = False, pair: bool = False, quad: bool = False):
     """The JAX windowed-decoder entry: same inputs and outputs as
     rans_decode_v2, plus its shape rule (t4_count a multiple of the window
     span S, S a multiple of 128//spc supercycles).  nway and S tune the
@@ -644,9 +644,9 @@ def rans_decode_v1_plain(csize_hw, tables, init_states, streams,
 
 
 def rans_decode(csize_hw, tables, init_states, streams, t4_count: int,
-                hrows: int, u16: bool = False, tlog: int = RANS_TABLELOG,
-                u16x: bool = False, pair: bool = False,
-                interpret: bool = False):
+                hrows: int, interpret: bool = False, u16: bool = False,
+                tlog: int = RANS_TABLELOG, u16x: bool = False,
+                pair: bool = False):
     """v1 decode of G groups (frames with no section: ratio mode, v1 pair,
     the U16 codec's ratio frames).  The rank and the cursor chain are both
     computed in the kernel: the cursor starts at csize_hw and drops by each

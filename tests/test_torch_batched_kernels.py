@@ -119,7 +119,7 @@ def test_inputs_round_trip_through_plain(mode):
     T = 20 byte steps included (not a multiple of the batch)."""
     t4 = 5 if mode == "byte" else 2
     args, dtbl, vals = _encode_args("cpu", mode, 2, t4)
-    enc = rk.rans_encode2(*args, **ENC_FLAGS[mode])
+    enc = rk.rans_encode2(*args[:5], tlog=args[5], **ENC_FLAGS[mode])
     assert (rk._u32(enc[1]) >= 1 << 31).any()
     (out, err), (p_out, p_err) = _decode("cpu", rk.rans_decode_v2, mode, enc,
                                          dtbl, t4, args[4], args[5])
@@ -134,7 +134,7 @@ def test_cuda_batched_encode_matches_plain(cuda, mode, G, t4):
     args, _dtbl, _vals = _encode_args(cuda, mode, G, t4)
     flags = ENC_FLAGS[mode]
     for steptots in (True, False):
-        got = rk.rans_encode2(*args, **flags, steptots=steptots, rowloc=True)
+        got = rk.rans_encode2(*args[:5], tlog=args[5], **flags, steptots=steptots, rowloc=True)
         want = rk.rans_encode2_plain(*args, **flags, steptots=steptots)
         torch.cuda.synchronize()
         assert (got[3] is None) == (not steptots)
@@ -144,7 +144,8 @@ def test_cuda_batched_encode_matches_plain(cuda, mode, G, t4):
         assert (rk._u32(got[1]) >= 1 << 31).any()
     if mode in ("byte", "u16", "u16x"):     # the v1 layout: one halfword per i32
         v1 = (*args[:5], mode != "byte", args[5])
-        for g, w in zip(rk.rans_encode(*v1), rk.rans_encode_plain(*v1)):
+        got = rk.rans_encode(*args[:5], False, mode != "byte", args[5])
+        for g, w in zip(got, rk.rans_encode_plain(*v1)):
             assert torch.equal(g, w)
 
 
@@ -155,7 +156,7 @@ def test_cuda_batched_encode_short_stream_matches_plain(cuda, mode):
     it are dropped, csize still counts them."""
     args, _dtbl, _vals = _encode_args(cuda, mode, 3, 40 if mode == "quad" else 9,
                                       hcap=16)
-    got = rk.rans_encode2(*args, **ENC_FLAGS[mode])
+    got = rk.rans_encode2(*args[:5], tlog=args[5], **ENC_FLAGS[mode])
     want = rk.rans_encode2_plain(*args, **ENC_FLAGS[mode])
     torch.cuda.synchronize()
     assert int(got[2].min()) > got[0][0].numel() * 2

@@ -86,8 +86,8 @@ def test_cli_turbo_needs_cuda_or_device_host(tmp_path, monkeypatch, capsys):
 
 
 def test_cli_unported_modes_and_argument_checks(tmp_path, capsys, monkeypatch):
-    """-b is not ported; the compat codecs need CUDA or --device host; -z
-    has no device codec."""
+    """-b and the compat codecs need CUDA or --device host; -z has no
+    device codec."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     src = _src(tmp_path, generate_proba(80)[:5000])
     for argv in (["-e", src], ["-h", src], [src], ["--auto", src],
@@ -97,8 +97,9 @@ def test_cli_unported_modes_and_argument_checks(tmp_path, capsys, monkeypatch):
     assert main(["-z", src]) == 1
     assert "-z (zlibh) has no device codec" in capsys.readouterr().err
     assert not (tmp_path / "in.bin.fse").exists()
-    assert main(["-b", src]) == 1
-    assert "not yet ported" in capsys.readouterr().err
+    for argv in (["-b", src], ["-b", "-T", src], ["-b", "-h", src]):
+        assert main(argv) == 1
+        assert "--device host" in capsys.readouterr().err
     assert main(["-T", "--device", "host"]) == 1          # no input
     assert main(["-T", "--device", "host", src, "a", "b"]) == 1   # file list
     with pytest.raises(SystemExit):

@@ -111,8 +111,8 @@ def test_plain_flat_encode_matches_jax_interpret(steptots):
     fc, mg, srcw, t4, hcap = _byte_inputs(names=list(CORPORA))
     want = j_encode2(jnp.asarray(fc), jnp.asarray(mg), jnp.asarray(srcw), t4,
                      hcap, True, False, 11, steptots, 0, False)
-    got = rk.rans_encode2(*_cpu(fc, mg, srcw), t4, hcap, 11,
-                          steptots=steptots, rowloc=False)
+    got = rk.rans_encode2(*_cpu(fc, mg, srcw), t4, hcap, False, False, 11,
+                          steptots, 0, False)
     _same(got, want, True)
     assert (got[1].numpy().view(np.uint32) >= 1 << 31).any()
 
@@ -129,8 +129,8 @@ def test_plain_flat_encode_u16_matches_jax_interpret(force):
     assert fc.shape == (1, 8, 128) and t2 == 4
     want = j_encode2(jnp.asarray(fc), jnp.asarray(mg), jnp.asarray(srcw), t2,
                      hcap, True, True, 11, True, force, False)
-    got = rk.rans_encode2(*_cpu(fc, mg, srcw), t2, hcap, 11, u16=True,
-                          force_chunk=force)
+    got = rk.rans_encode2(*_cpu(fc, mg, srcw), t2, hcap, False, True, 11,
+                          True, force, False)
     _same(got, want, True)
 
 
@@ -147,9 +147,9 @@ def test_force_chunk_keeps_the_chunking_rule():
         j_encode2(jnp.asarray(fc), jnp.asarray(mg), jnp.asarray(srcw), t2,
                   hcap, True, True, 11, True, 2)
     with pytest.raises(ValueError, match="multiple of 2"):
-        rk.rans_encode2(*_cpu(fc, mg, srcw), t2, hcap, 11, u16=True,
-                        force_chunk=2)
-    outs = [rk.rans_encode2(*_cpu(fc, mg, srcw), t2, hcap, 11, u16=True,
+        rk.rans_encode2(*_cpu(fc, mg, srcw), t2, hcap, False, True, 11,
+                        True, 2)
+    outs = [rk.rans_encode2(*_cpu(fc, mg, srcw), t2, hcap, u16=True,
                             force_chunk=f) for f in (0, 1, 3)]
     for out in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
@@ -166,7 +166,8 @@ def test_plain_byte_v1_encode_matches_jax_interpret(steptots):
     fc, mg, srcw, t4, hcap = _byte_inputs(names=list(CORPORA))
     want = j_encode(jnp.asarray(fc), jnp.asarray(mg), jnp.asarray(srcw), t4,
                     hcap, True, False, 11, steptots)
-    got = rk.rans_encode(*_cpu(fc, mg, srcw), t4, hcap, False, 11, steptots)
+    got = rk.rans_encode(*_cpu(fc, mg, srcw), t4, hcap, False, False, 11,
+                         steptots)
     _same(got, want, False)
 
 
@@ -178,8 +179,8 @@ def test_byte_v1_wire_equals_flat_wire():
     s1, f1, c1, st1 = rk.rans_encode(*_cpu(fc, mg, srcw), t4, hcap)
     cs = int(c1[0])
     for force in (0, 2, 1):
-        s2, f2, c2, st2 = rk.rans_encode2(*_cpu(fc, mg, srcw), t4, hcap, 11,
-                                          force_chunk=force)
+        s2, f2, c2, st2 = rk.rans_encode2(*_cpu(fc, mg, srcw), t4, hcap,
+                                          tlog=11, force_chunk=force)
         assert int(c2[0]) == cs
         assert _wire(s2[0], cs, True) == _wire(s1[0], cs, False), force
         assert torch.equal(f2, f1) and torch.equal(st2, st1), force
@@ -189,11 +190,11 @@ def test_u16_v1_wire_equals_flat_wire():
     """tests/test_turbo.py:424-460 inside the port: the same for u16
     symbols on 8-chunk tables."""
     fc, mg, srcw, t2, hcap = _u16_inputs(6144)
-    s1, f1, c1, st1 = rk.rans_encode(*_cpu(fc, mg, srcw), t2, hcap, True)
+    s1, f1, c1, st1 = rk.rans_encode(*_cpu(fc, mg, srcw), t2, hcap, u16=True)
     cs = int(c1[0])
     for force in (0, 1):
-        s2, f2, c2, st2 = rk.rans_encode2(*_cpu(fc, mg, srcw), t2, hcap, 11,
-                                          u16=True, force_chunk=force)
+        s2, f2, c2, st2 = rk.rans_encode2(*_cpu(fc, mg, srcw), t2, hcap,
+                                          tlog=11, u16=True, force_chunk=force)
         assert int(c2[0]) == cs
         assert _wire(s2[0], cs, True) == _wire(s1[0], cs, False), force
         assert torch.equal(f2, f1) and torch.equal(st2, st1), force
@@ -246,7 +247,7 @@ def test_cuda_flat_encode_matches_plain(cuda, mode, steptots):
     args = (*ins.values(), t4, hcap, tlog)
     key = f"rans_encode2_flat:{mode}"
     before = rk.launches[key]
-    got = rk.rans_encode2(*args, u16=u16, steptots=steptots)
+    got = rk.rans_encode2(*args[:5], tlog=tlog, u16=u16, steptots=steptots)
     torch.cuda.synchronize()
     assert rk.launches[key] == before + 1
     want = rk.rans_encode2_plain(*args, u16=u16, steptots=steptots)
@@ -262,7 +263,7 @@ def test_cuda_byte_v1_encode_matches_plain(cuda, steptots):
     ins = to_tensors(cuda, fc_tables=fc, magic_tables=mg, src_words=srcw)
     args = (*ins.values(), t4, hcap, False, 11, steptots)
     before = rk.launches["rans_encode:byte"]
-    got = rk.rans_encode(*args)
+    got = rk.rans_encode(*args[:5], False, *args[5:])
     torch.cuda.synchronize()
     assert rk.launches["rans_encode:byte"] == before + 1
     for g, w in zip(got, rk.rans_encode_plain(*args)):

@@ -91,7 +91,7 @@ def _totals(arrays, stots, t4, hcap, tlog, entry):
     tots = stots.sum(dim=2).to(torch.int32)
     if entry == "rans_decode_w":
         return rk.rans_decode_w(*arrays, tots, t4, hcap, 8, tlog, 32)
-    return getattr(rk, entry)(*arrays, tots, t4, hcap, tlog)
+    return getattr(rk, entry)(*arrays, tots, t4, hcap, tlog=tlog)
 
 
 def _v0_batch(sizes_corpora, dev):

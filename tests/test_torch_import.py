@@ -32,7 +32,8 @@ assert {pkg.__name__ + "." + m for m in (
     "refimpl.huf", "refimpl.zlibh", "io.frame", "models", "models.select",
     "models.fse_codec", "models.huf_codec", "ops.bitio", "ops.fse_tables",
     "ops.fse_kernels", "ops.huf_kernels", "parallel.dp", "refimpl.fseu16",
-    "utils.xxhash64", "models.u16_codec")} <= names, sorted(names)
+    "utils.xxhash64", "models.u16_codec", "benchmarks",
+    "benchmarks.fullbench", "benchmarks.blockbench")} <= names, sorted(names)
 from finitestateentropy_tpu_torch.turbo.api import (turbo_compress_device,
                                                     turbo_decompress_device)
 from finitestateentropy_tpu_torch.turbo.rans import rans_compress
@@ -87,6 +88,11 @@ for wire in ("compat", "turbo"):
     c = U16Codec(wire=wire, device="cpu")
     blobs = c.compress_streams([sym])
     assert np.array_equal(c.decompress_streams([(blobs[0], len(sym))])[0], sym)
+# the bench: a host stage, and a turbo stage on the CPU
+from finitestateentropy_tpu_torch.benchmarks import fullbench
+assert fullbench._stages()[1][0] == "HIST_count(255)"
+enc = fullbench._turbo_stages(1, 1 << 19, "cpu")[207][1]()
+assert int(enc[2][0]) > 0
 print("ok")
 """
 
@@ -113,7 +119,7 @@ def test_sources_import_no_jax_package():
             "huf_kernels.py", "fse_codec.py", "huf_codec.py", "select.py",
             "frame.py", "dp.py", "fse.py", "huf.py", "zlibh.py",
             "blocktypes.py", "bitstream.py", "fseu16.py", "xxhash64.py",
-            "u16_codec.py"} <= {f.name for f in files}
+            "u16_codec.py", "fullbench.py", "blockbench.py"} <= {f.name for f in files}
     offenders = [str(f.relative_to(REPO)) for f in files
                  if bad.search(f.read_text())]
     assert offenders == []

@@ -72,7 +72,8 @@ def test_plain_encode_matches_jax_twin(name, n):
     fc, mg, srcw, t4, hcap = _encode_batch([data])
     ins = to_tensors("cpu", fc_tables=fc, magic_tables=mg, src_words=srcw)
     stream, fin, cs, st = rk.rans_encode2(
-        ins["fc_tables"], ins["magic_tables"], ins["src_words"], t4, hcap, 10)
+        ins["fc_tables"], ins["magic_tables"], ins["src_words"], t4, hcap,
+        tlog=10)
     assert int(cs[0]) == csize
     assert _halfwords(stream[0].numpy(), csize).tobytes() == payload
     fin = fin[0].numpy().reshape(-1).view(np.uint32)
@@ -91,7 +92,7 @@ def test_plain_decode_matches_jax_twin(name):
     ins = to_tensors("cpu", **arrays)
     for entry in (rk.rans_decode_v2, rk.rans_decode_plain):
         out, err = entry(ins["csize_hw"], ins["tables"], ins["init_states"],
-                         ins["streams"], ins["steptots"], t4, hrows, tlog)
+                         ins["streams"], ins["steptots"], t4, hrows, tlog=tlog)
         assert err.tolist() == [0, 0, 0]
         assert [out[j].numpy().tobytes() for j in range(3)] == datas
 
@@ -147,7 +148,7 @@ def test_decode_steps_from_states_above_2_31():
                      steptots=steptots)
     out, err = rk.rans_decode_v2(ins["csize_hw"], ins["tables"],
                                  ins["init_states"], ins["streams"],
-                                 ins["steptots"], 1, 24, tlog)
+                                 ins["steptots"], 1, 24, tlog=tlog)
     # Python-int reference of the same four steps
     x = [int(v) for v in init]
     t_u32 = [int(v) for v in tbl.reshape(-1).view(np.uint32)]
@@ -188,7 +189,8 @@ def test_lut_decode_steps_from_states_above_2_31(mode):
     modes = dict(u16=mode == "pair", pair=mode == "pair", quad=mode == "quad")
     out, _err = rk.rans_decode_v2(ins["csize_hw"], ins["tables"],
                                   ins["init_states"], ins["streams"],
-                                  ins["steptots"], 4 // spc, 24, tlog, **modes)
+                                  ins["steptots"], 4 // spc, 24, tlog=tlog,
+                                  **modes)
     x = [int(v) for v in init]
     t_u32 = [int(v) for v in tbl.reshape(-1).view(np.uint32)]
     lut = t_u32[-256:]
@@ -270,7 +272,8 @@ def test_state_carry_matches_jax_encode_interpret():
     ins = to_tensors("cpu", fc_tables=fc[None], magic_tables=mg[None],
                      src_words=srcw)
     got = [a.numpy() for a in rk.rans_encode2(
-        ins["fc_tables"], ins["magic_tables"], ins["src_words"], 10, hcap, 10)]
+        ins["fc_tables"], ins["magic_tables"], ins["src_words"], 10, hcap,
+        False, False, 10, True, 0, True)]
     assert [g.shape for g in got] == [w.shape for w in want]
     assert [g.dtype for g in got] == [w.dtype for w in want]
     cs = int(want[2][0])
@@ -327,7 +330,7 @@ def test_cuda_encode_matches_plain(cuda):
     ins = to_tensors(cuda, fc_tables=fc, magic_tables=mg, src_words=srcw)
     args = (ins["fc_tables"], ins["magic_tables"], ins["src_words"], t4, hcap, 10)
     before = rk.launches["rans_encode2:byte"]
-    got = rk.rans_encode2(*args, rowloc=True)
+    got = rk.rans_encode2(*args[:5], tlog=10, rowloc=True)
     torch.cuda.synchronize()
     assert rk.launches["rans_encode2:byte"] == before + 1
     want = rk.rans_encode2_plain(*args)
@@ -351,7 +354,7 @@ def test_cuda_decode_matches_plain(cuda, entry):
     if entry == "rans_decode_w":
         out, err = rk.rans_decode_w(*args, 8, tlog, 64)
     else:
-        out, err = rk.rans_decode_v2(*args, tlog)
+        out, err = rk.rans_decode_v2(*args, tlog=tlog)
     torch.cuda.synchronize()
     assert rk.launches[f"{entry}:byte"] == before + 1
     p_out, p_err = rk.rans_decode_plain(*args, tlog)
@@ -374,7 +377,7 @@ def test_cuda_mode_encode_matches_plain(cuda, mode, flags, tlog):
             tlog)
     modes = dict(u16=mode == "pair", quad=mode == "quad", rowloc=True)
     before = rk.launches[f"rans_encode2:{mode}"]
-    got = rk.rans_encode2(*args, **modes)
+    got = rk.rans_encode2(*args[:5], tlog=tlog, **modes)
     torch.cuda.synchronize()
     assert rk.launches[f"rans_encode2:{mode}"] == before + 1
     want = rk.rans_encode2_plain(*args, **modes)
@@ -402,7 +405,7 @@ def test_cuda_mode_decode_matches_plain(cuda, entry, mode, flags):
         out, err = rk.rans_decode_w(*args, 8, tlog, 64 if mode == "pair" else 128,
                                     **modes)
     else:
-        out, err = rk.rans_decode_v2(*args, tlog, **modes)
+        out, err = rk.rans_decode_v2(*args, tlog=tlog, **modes)
     torch.cuda.synchronize()
     assert rk.launches[key] == before + 1
     p_out, p_err = rk.rans_decode_plain(*args, tlog, **modes)
@@ -416,12 +419,12 @@ def test_cuda_quad_odd_T_matches_plain(cuda):
     fc, mg, srcw, t4, hcap, tlog = enc["quad"]
     ins = to_tensors(cuda, fc_tables=fc, magic_tables=mg, src_words=srcw)
     args = (*ins.values(), t4, hcap, tlog)
-    for g, w in zip(rk.rans_encode2(*args, quad=True),
+    for g, w in zip(rk.rans_encode2(*args[:5], tlog=tlog, quad=True),
                     rk.rans_encode2_plain(*args, quad=True)):
         assert torch.equal(g, w)
     arrays, t4, hrows, tlog = dec["quad"]
     ins = to_tensors(cuda, **arrays)
-    got = rk.rans_decode_v2(*ins.values(), t4, hrows, tlog, quad=True)
+    got = rk.rans_decode_v2(*ins.values(), t4, hrows, tlog=tlog, quad=True)
     want = rk.rans_decode_plain(*ins.values(), t4, hrows, tlog, quad=True)
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
@@ -495,7 +498,7 @@ def test_flat_decode_steps_from_states_above_2_31(entry, mode):
     if entry == "rans_decode":
         out, err = rk.rans_decode(*args, 4 // spc, 24, tlog=tlog, **u16)
     else:
-        out, err = rk.rans_decode_v2(*args, ins["steptots"], 1, 24, tlog)
+        out, err = rk.rans_decode_v2(*args, ins["steptots"], 1, 24, tlog=tlog)
     x = [int(v) for v in init]
     t_u32 = [int(v) for v in tbl.reshape(-1).view(np.uint32)]
     hw = [int(v) for v in streams.reshape(-1).view(np.uint16)]
@@ -538,12 +541,13 @@ def test_plain_v1_and_totals_decode_match_jax_interpret():
                 ins["streams"])
         if kind == 0:
             j_out, j_err = j_v1(*j_in, t4, hrows, True, False, groups[0][2])
-            out, err = rk.rans_decode(*args, t4, hrows, tlog=groups[0][2])
+            out, err = rk.rans_decode(*args, t4, hrows, False, False,
+                                      groups[0][2])
         else:
             j_out, j_err = j_v2(*j_in, jnp.asarray(tots), t4, hrows, True,
                                 groups[0][2])
             steptots = to_tensors("cpu", steptots=tots)["steptots"]
-            out, err = rk.rans_decode_v2(*args, steptots, t4, hrows,
+            out, err = rk.rans_decode_v2(*args, steptots, t4, hrows, False,
                                          groups[0][2])
         assert (np.asarray(j_err) != 0).tolist() == (err.numpy() != 0).tolist() \
             == [False, True]
@@ -557,7 +561,8 @@ def test_decode_mode_rules():
     tots = ins["steptots"].sum(dim=2).to(torch.int32)
     with pytest.raises(ValueError, match="byte-only"):
         rk.rans_decode_v2(ins["csize_hw"], ins["tables"], ins["init_states"],
-                          ins["streams"], tots, t4 * 2, hrows, tlog, u16=True)
+                          ins["streams"], tots, t4 * 2, hrows, tlog=tlog,
+                          u16=True)
     with pytest.raises(ValueError, match="tableLog"):
         rk.rans_decode(*list(ins.values())[:4], t4, hrows, tlog=13)
 
@@ -622,7 +627,7 @@ def test_cuda_totals_decode_matches_plain(cuda, entry):
     if entry == "rans_decode_w":
         out, err = rk.rans_decode_w(*args, 8, tlog, 64)
     else:
-        out, err = rk.rans_decode_v2(*args, tlog)
+        out, err = rk.rans_decode_v2(*args, tlog=tlog)
     torch.cuda.synchronize()
     assert rk.launches[f"{entry}:totals"] == before + 1
     p_out, p_err = rk.rans_decode_plain(*args, tlog)
@@ -671,7 +676,7 @@ def test_cuda_encode16_matches_plain(cuda, alphabet):
     ins = to_tensors(cuda, fc_tables=fc, magic_tables=mg, src_words=srcw)
     args = (*ins.values(), t2, hcap, True, tlog)
     before = rk.launches[f"rans_encode:{alphabet}"]
-    got = rk.rans_encode(*args)
+    got = rk.rans_encode(*args[:5], False, *args[5:])
     torch.cuda.synchronize()
     assert rk.launches[f"rans_encode:{alphabet}"] == before + 1
     for g, w in zip(got, rk.rans_encode_plain(*args)):
@@ -692,7 +697,7 @@ def test_cuda_u16_decode_matches_plain(cuda, alphabet, entry):
     if entry == "rans_decode_w":
         out, err = rk.rans_decode_w(*args, 8, tlog, 64, **flags)
     else:
-        out, err = rk.rans_decode_v2(*args, tlog, **flags)
+        out, err = rk.rans_decode_v2(*args, tlog=tlog, **flags)
     torch.cuda.synchronize()
     assert rk.launches[key] == before + 1
     p_out, p_err = rk.rans_decode_plain(*args, tlog, **flags)

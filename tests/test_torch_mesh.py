@@ -172,12 +172,13 @@ def test_sharded_steps_match_single_device(m):
         assert G == 5
         padded = _pad_groups([fc, mg, srcw], m)
         for make, step_kw, single_kw in steps:
-            got = make(mesh, t4, hcap, tlog, **step_kw)(*padded)
-            want = rk.rans_encode2(_t(fc), _t(mg), _t(srcw), t4, hcap, tlog,
-                                   **single_kw)
+            got = make(mesh, t4, hcap, tlog=tlog, **step_kw)(*padded)
+            want = rk.rans_encode2(_t(fc), _t(mg), _t(srcw), t4, hcap,
+                                   tlog=tlog, **single_kw)
             _equal(got[:-1], want, G)
             assert int(got[-1]) == int(rk.rans_encode2(
-                *(_t(a) for a in padded), t4, hcap, tlog, **single_kw)[2].sum())
+                *(_t(a) for a in padded), t4, hcap, tlog=tlog,
+                **single_kw)[2].sum())
     data = generate_proba(80, 5 * 131072)     # decode_w: t4 a multiple of 32
     for kind, make in ((2, turbo_dp.sharded_turbo_decode_v2),
                        (1, turbo_dp.sharded_turbo_decode_v2),
@@ -197,10 +198,11 @@ def test_sharded_steps_match_single_device(m):
             want = rk.rans_decode_w(*(_t(a) for a in arrays), t4, hrows, 8,
                                     tlog, 32)
         elif kind:
-            step = make(mesh, t4, hrows, tlog)
-            want = rk.rans_decode_v2(*(_t(a) for a in arrays), t4, hrows, tlog)
+            step = make(mesh, t4, hrows, tlog=tlog)
+            want = rk.rans_decode_v2(*(_t(a) for a in arrays), t4, hrows,
+                                     tlog=tlog)
         else:
-            step = make(mesh, t4, hrows, tlog)
+            step = make(mesh, t4, hrows, tlog=tlog)
             want = rk.rans_decode(*(_t(a) for a in arrays), t4, hrows, tlog=tlog)
         out, err, any_err = step(*_pad_groups(arrays, m))
         _equal((out, err), want, 5)
@@ -222,8 +224,8 @@ def test_sharded_roundtrips_match_single_device(m):
         fc, mg, srcw, dtbl, t4, hcap = byte_inputs(generate_proba(80), G, gsz)
         padded = _pad_groups([fc, mg, srcw, dtbl], m)
         ok, total = make(mesh, t4, hcap)(*padded)
-        csize = rk.rans_encode2(*(_t(a) for a in padded[:3]), t4, hcap, 11,
-                                **single)[2]
+        csize = rk.rans_encode2(*(_t(a) for a in padded[:3]), t4, hcap,
+                                tlog=11, **single)[2]
         assert int(ok) == 1 and int(total) == int(csize.sum())
         bad = [a.copy() for a in padded]
         bad[3][-1, 0, 5] ^= 1 << 10            # a wrong decode table entry
@@ -235,7 +237,7 @@ def test_sharded_steps_need_an_even_split():
     fc, mg, srcw, t4, hcap, tlog = _encode_inputs(
         generate_proba(80, 5 * 40960), 40960, "byte", pair=0, quad=0)
     with pytest.raises(ValueError, match="do not split"):
-        turbo_dp.sharded_turbo_encode(mesh, t4, hcap, tlog)(fc, mg, srcw)
+        turbo_dp.sharded_turbo_encode(mesh, t4, hcap, tlog=tlog)(fc, mg, srcw)
 
 
 def test_dryrun_multichip_on_a_cpu_mesh():

@@ -21,9 +21,6 @@ PORT = "finitestateentropy_tpu_torch"
 
 # JAX module (path in the package) -> {name: why the port has no such name}
 LEFT_OUT = {
-    "benchmarks": {"*": "the bench is not ported yet (ROADMAP A)"},
-    "turbo/api.py": {"prep_group": "the port's host prep is api._prep_group (numpy); a "
-                                   "native-backed prep is host-time work (ROADMAP A)"},
     "turbo/kernels.py": {"MAX_STEP_BITS": "the v0 Pallas kernel's VMEM bound; the CUDA "
                                           "kernel has no such bound"},
     "turbo/rans_kernels.py": {
@@ -74,11 +71,7 @@ JAX_FILES = sorted(str(f.relative_to(JAX_PKG)) for f in JAX_PKG.rglob("*.py"))
 
 @pytest.mark.parametrize("rel", JAX_FILES)
 def test_jax_public_names_resolve_in_port(rel):
-    left = LEFT_OUT.get(rel.split("/")[0], {}) if rel.startswith("benchmarks") \
-        else LEFT_OUT.get(rel, {})
-    if "*" in left:
-        assert not (REPO / PORT / rel).exists(), f"{rel} is ported: list its names"
-        return
+    left = LEFT_OUT.get(rel, {})
     tree = ast.parse((JAX_PKG / rel).read_text())
     names = _bound_names(tree, rel.endswith("__init__.py"))
     assert names or rel.endswith("__init__.py")
@@ -99,8 +92,7 @@ def test_jax_public_names_resolve_in_port(rel):
 
 
 def test_left_out_and_moved_name_jax_modules():
-    assert {Path(r).parts[0] if r.startswith("benchmarks") else r for r in JAX_FILES} \
-        >= set(LEFT_OUT) | set(MOVED)
+    assert set(JAX_FILES) >= set(LEFT_OUT) | set(MOVED)
 
 
 def test_codec_config_equals_jax():

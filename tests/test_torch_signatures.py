@@ -9,11 +9,21 @@ versions of the kernels on the entry's device: the frames are the same
 and no kernel is launched, even where the wrappers would otherwise
 launch (here faked: the wrappers are told their inputs lie on a card, and
 a launch raises).  The package exports the JAX package's lazy names.
+
+Every public function both packages define (the kernel wrappers and the
+mesh steps among them) takes the JAX function's parameters in its order,
+with the port's own (device, block_size) after them; a positional call in
+JAX's order (fullbench's stages 207 and 209) gives JAX's result.
+api.prep_group takes the stats from the native library, as JAX's does,
+and the frames stay the same.
 """
+import ast
 import inspect
+from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import finitestateentropy_tpu.turbo as j_turbo
 import finitestateentropy_tpu_torch.turbo as turbo
@@ -217,3 +227,174 @@ def test_compat_api_follows_jax(module, name, extra):
     if isinstance(port, type):
         for meth in ("compress_blocks", "decompress_blocks"):
             assert _params(getattr(port, meth)) == _params(getattr(jax, meth))
+
+
+# ---------------------------------------------------------------------------
+# every public function both packages define: JAX's parameters, in JAX's
+# order, with the port's own after them
+# ---------------------------------------------------------------------------
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_ONLY = {"device", "block_size"}
+
+
+def _ast_params(path: Path) -> dict[str, list[str]]:
+    """{name: parameter names} of a module's public functions and of its
+    public classes' __init__ and public methods, read by AST."""
+    def names(f):
+        a = f.args
+        return ([p.arg for p in a.posonlyargs + a.args]
+                + ([f"*{a.vararg.arg}"] if a.vararg else [])
+                + [p.arg for p in a.kwonlyargs])
+
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+            out[node.name] = names(node)
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            for m in node.body:
+                if isinstance(m, ast.FunctionDef) and (
+                        m.name == "__init__" or not m.name.startswith("_")):
+                    out[f"{node.name}.{m.name}"] = names(m)
+    return out
+
+
+def _shared() -> list[tuple[str, str, list[str], list[str]]]:
+    jax_pkg, port_pkg = REPO / "finitestateentropy_tpu", REPO / "finitestateentropy_tpu_torch"
+    out = []
+    for f in sorted(jax_pkg.rglob("*.py")):
+        rel = f.relative_to(jax_pkg)
+        j, p = _ast_params(f), _ast_params(port_pkg / rel)
+        out += [(str(rel), n, j[n], p[n]) for n in sorted(set(j) & set(p))]
+    return out
+
+
+SHARED = _shared()
+
+
+def test_shared_functions_cover_the_wrappers_and_mesh_steps():
+    names = {n for _r, n, _j, _p in SHARED}
+    assert len(SHARED) > 150
+    assert {"rans_encode2", "rans_encode", "rans_decode", "rans_decode_v2",
+            "rans_decode_w", "sharded_turbo_roundtrip", "sharded_turbo_decode_w",
+            "prep_group", "bench_files"} <= names
+
+
+@pytest.mark.parametrize("rel,name,jax_params,port_params", SHARED,
+                         ids=[f"{r}:{n}" for r, n, _j, _p in SHARED])
+def test_shared_function_takes_jax_parameters_in_order(rel, name, jax_params,
+                                                       port_params):
+    assert port_params[:len(jax_params)] == jax_params
+    assert set(port_params[len(jax_params):]) <= PORT_ONLY
+
+
+def _stage_encode_inputs(gsz: int):
+    """One group of fullbench's 20% proba data, as its stages stage it:
+    (fc, mg, srcw, t4, hcap) numpy arrays."""
+    from finitestateentropy_tpu.turbo.api import _hrows_cap, _prep_group
+    from finitestateentropy_tpu.turbo.format import _pad_n
+    from finitestateentropy_tpu.turbo.rans_kernels import pack_rans_ctables
+
+    base = generate_proba(20)
+    src = np.frombuffer((base * 2)[:gsz], np.uint8)
+    norm, _msv, _nc, mfs = _prep_group(src)
+    n_pad = _pad_n(gsz)
+    fc, mg = pack_rans_ctables(norm)
+    pad = np.full(n_pad, mfs, np.uint8)
+    pad[:gsz] = src
+    return (fc[None], mg[None], pad.view("<i4").reshape(1, -1, 128),
+            n_pad // 4096, _hrows_cap(n_pad))
+
+
+def test_positional_rans_encode2_in_jax_order_equals_jax():
+    """fullbench stage 207's argument list (the row-local placement),
+    positional: the port's call equals JAX's with interpret=True."""
+    import jax.numpy as jnp
+
+    from finitestateentropy_tpu.turbo.rans_kernels import rans_encode2 as j_enc
+
+    fc, mg, srcw, t4, hcap = _stage_encode_inputs(1 << 16)
+    want = [np.asarray(a) for a in j_enc(jnp.asarray(fc), jnp.asarray(mg),
+                                         jnp.asarray(srcw), t4, hcap, True,
+                                         False, 11, True, 0, True)]
+    rk.reset_launches()
+    got = [a.numpy() for a in rk.rans_encode2(*(torch.from_numpy(a) for a in (fc, mg, srcw)),
+                                              t4, hcap, False, False, 11, True, 0, True)]
+    assert not any(rk.launches.values())
+    cs = int(want[2][0])
+    assert int(got[2][0]) == cs
+    # the first csize halfwords; JAX leaves the rest unwritten
+    assert np.array_equal(got[0].reshape(-1).view("<u2")[:cs],
+                          want[0].reshape(-1).view("<u2")[:cs])
+    assert np.array_equal(got[1], want[1]) and np.array_equal(got[3], want[3])
+
+
+def test_positional_rans_decode_w_in_jax_order_equals_jax():
+    """fullbench stage 209's argument list (quad, S = 128, at its smallest
+    group: 512 KiB), positional: the port's call equals JAX's with
+    interpret=True."""
+    import jax.numpy as jnp
+
+    from finitestateentropy_tpu.turbo.quad import (QUAD_TABLELOG, _pad_q,
+                                                   parse_quad_group,
+                                                   quad_compress)
+    from finitestateentropy_tpu.turbo.rans_kernels import (pack_quad_dtable,
+                                                           pack_stream_words,
+                                                           rans_decode_w as j_w,
+                                                           stream_word_rows)
+
+    data = generate_proba(80, 1 << 19)
+    (qn, qcs, qtl, _f, qnorm, _m, qinit, qpay, qst, quads, _e), _ = \
+        parse_quad_group(quad_compress(data, table_log=QUAD_TABLELOG))
+    steps = _pad_q((qn + 3) // 4) // 1024
+    qhrows = api._round8((qcs + 127) // 128 + 16)
+    dq = [np.full(1, qcs, np.int32), pack_quad_dtable(qnorm, quads, qtl)[None],
+          qinit.view(np.int32).reshape(1, 8, 128),
+          pack_stream_words(qpay, stream_word_rows(qhrows))[None],
+          qst.astype(np.int32)[None]]
+    dq = [a.view(np.int32) if a.dtype == np.uint32 else a for a in dq]
+    j_out, j_err = j_w(*(jnp.asarray(a) for a in dq), steps, qhrows, 8, qtl,
+                       128, True, False, False, False, True)
+    out, err = rk.rans_decode_w(*(torch.from_numpy(a) for a in dq), steps,
+                                qhrows, 8, qtl, 128, False, False, False,
+                                False, True)
+    assert err.tolist() == np.asarray(j_err).tolist() == [0]
+    assert np.array_equal(out.numpy(), np.asarray(j_out))
+    vals = out.numpy().reshape(-1).view(np.uint32)[:(qn + 3) // 4].copy()
+    assert quad.apply_escapes(vals, _e).tobytes()[:qn] == data
+
+
+CORPORA = {"p80": 80, "p14": 14, "p02": 2}
+
+
+@pytest.mark.parametrize("name", list(CORPORA) + ["rle"])
+def test_prep_group_equals_jax(name):
+    """api.prep_group (native C when built, else _prep_group) against JAX's
+    prep_group, at the speed and ratio tableLogs."""
+    from finitestateentropy_tpu_torch import native
+
+    assert native.available()       # the path under test is the native one
+    chunk = (np.full(70000, 7, np.uint8) if name == "rle"
+             else np.frombuffer(generate_proba(CORPORA[name], 1 << 17), np.uint8))
+    for tlog in (10, 11):
+        got, want = api.prep_group(chunk, tlog), j_api.prep_group(chunk, tlog)
+        if want is None:
+            assert got is None and name in ("rle", "p02")
+            continue
+        assert np.array_equal(got[0], want[0]) and got[0].dtype == want[0].dtype
+        assert got[1:] == want[1:]
+        fallback = api._prep_group(chunk, tlog)
+        assert np.array_equal(got[0], fallback[0]) and got[1:] == fallback[1:]
+
+
+@pytest.mark.parametrize("kw", [{}, dict(pair=0, quad=0), dict(steptots=False)])
+def test_plan_encode_frames_unchanged_by_the_native_prep(kw, monkeypatch):
+    """The frames with the native prep equal those of the numpy prep the
+    port ran before (and JAX's twin on the byte wire)."""
+    parts = [generate_proba(p, 40960) for p in (80, 14, 2)] + [b"\x05" * 40960]
+    data = b"".join(parts)
+    got = api.turbo_compress_device(data, 40960, device="cpu", **kw)
+    monkeypatch.setattr(api, "prep_group", api._prep_group)
+    assert api.turbo_compress_device(data, 40960, device="cpu", **kw) == got
+    if kw.get("pair") == 0:
+        assert got == b"".join(j_twin(p, table_log=10) for p in parts)

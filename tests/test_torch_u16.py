@@ -175,8 +175,8 @@ def test_plain_encode_matches_jax_rans_encode_interpret(alphabet):
         jnp.asarray(fc), jnp.asarray(mg), jnp.asarray(srcw), t2, hcap, True,
         True, tlog, True)]
     ins = to_tensors("cpu", fc_tables=fc, magic_tables=mg, src_words=srcw)
-    got = [a.numpy() for a in rk.rans_encode(*ins.values(), t2, hcap, True,
-                                             tlog, True)]
+    got = [a.numpy() for a in rk.rans_encode(*ins.values(), t2, hcap, False,
+                                             True, tlog, True)]
     assert [g.shape for g in got] == [w.shape for w in want]
     assert [g.dtype for g in got] == [w.dtype for w in want]
     cs = int(want[2][0])
@@ -185,7 +185,8 @@ def test_plain_encode_matches_jax_rans_encode_interpret(alphabet):
     assert np.array_equal(got[0].reshape(-1)[:cs], want[0].reshape(-1)[:cs])
     assert np.array_equal(got[1], want[1]) and np.array_equal(got[3], want[3])
     assert (got[1].view(np.uint32) >= 1 << 31).any()
-    assert rk.rans_encode(*ins.values(), t2, hcap, True, tlog, False)[3] is None
+    assert rk.rans_encode(*ins.values(), t2, hcap, False, True, tlog,
+                          False)[3] is None
 
 
 @pytest.mark.parametrize("alphabet", ALPHABETS)
@@ -211,7 +212,8 @@ def test_plain_decode_matches_jax_rans_decode_interpret(alphabet):
                             t2, hrows, True, True, groups[0][2], big)
     ins = to_tensors("cpu", csize_hw=cs, tables=tbl, init_states=init,
                      streams=hws)
-    out, err = rk.rans_decode(*ins.values(), t2, hrows, True, groups[0][2], big)
+    out, err = rk.rans_decode(*ins.values(), t2, hrows, False, True,
+                              groups[0][2], big)
     assert (np.asarray(j_err) != 0).tolist() == (err.numpy() != 0).tolist() \
         == [False, True]
     assert np.array_equal(out[0].numpy(), np.asarray(j_out)[0])
