@@ -1,0 +1,6 @@
+"""Compress rate: original bytes over the compress calls' wall time, GB/s."""
+from h100_bench.readers import rate_gbps
+
+
+def read(rec):
+    return rate_gbps(rec, "compress")

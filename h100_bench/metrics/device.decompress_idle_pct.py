@@ -1,0 +1,7 @@
+"""Share of the decompress calls' wall time with no kernel, copy or memset
+on the device."""
+from h100_bench.readers import idle_pct
+
+
+def read(rec):
+    return idle_pct(rec, "decompress")
