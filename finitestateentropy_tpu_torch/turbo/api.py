@@ -29,6 +29,7 @@ from ..parallel.mesh import Mesh, get_mesh
 from ..parallel.turbo_dp import (sharded_turbo_decode, sharded_turbo_decode_v2,
                                  sharded_turbo_encode, sharded_turbo_encode_v2)
 from ..utils.debug import debuglog
+from ..utils.trace import span
 from .format import TURBO_LANES, _pad_n
 from .pair import apply_escapes, predicted_bits, prep_pair_group
 from .quad import _pad_q, prep_quad_group
@@ -59,7 +60,9 @@ PAIR_RATIO_GIVE = 0.07
 
 # Seconds per entry-point stage (c_prep, c_stage, c_h2d, c_kernel, c_d2h,
 # c_frames; d_parse, d_stage, d_h2d, d_kernel, d_d2h, d_copy, d_join),
-# summed while this is a dict; None turns the timing off.
+# summed while this is a dict; None turns the timing off.  Apart from it,
+# each stage is a span "turbo.<stage>" (utils/trace.py) that a running
+# torch.profiler records, with no sync; no profiler, no span.
 stage_seconds: dict[str, float] | None = None
 
 
@@ -121,15 +124,18 @@ def prep_group(chunk: np.ndarray, table_log: int = RANS_TABLELOG):
 def _stage(name: str, dev: torch.device):
     """Add the wall seconds of the enclosed stage to stage_seconds[name]
     while stage_seconds is a dict; the stage then ends in a device sync,
-    so kernel time lands in its own stage.  Off (None), it adds no sync."""
-    if stage_seconds is None:
+    so kernel time lands in its own stage.  Off (None), it adds no sync.
+    Either way the stage is the span "turbo.<name>" (the sync inside it)."""
+    with span("turbo." + name):
+        if stage_seconds is None:
+            yield
+            return
+        t0 = time.perf_counter()
         yield
-        return
-    t0 = time.perf_counter()
-    yield
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    stage_seconds[name] = stage_seconds.get(name, 0.0) + time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        stage_seconds[name] = (stage_seconds.get(name, 0.0)
+                               + time.perf_counter() - t0)
 
 
 def _map(fn, items) -> list:
@@ -281,14 +287,21 @@ def plan_encode(data: bytes, group_size: int, table_log: int, pair: int = -1,
 
     def full_prep(ch):
         """(wire, prep), or (None, None) for an RLE / raw group."""
-        p = prep_group(ch, table_log)
+        with span("turbo.prep.byte"):
+            p = prep_group(ch, table_log)
         if p is None:
             return None, None
-        pp = prep_pair_group(ch, pair_table_log) if pair != 0 else None
-        qp = prep_quad_group(ch, quad_table_log) if quad != 0 else None
+        pp = qp = None
+        if pair != 0:
+            with span("turbo.prep.pair"):
+                pp = prep_pair_group(ch, pair_table_log)
+        if quad != 0:
+            with span("turbo.prep.quad"):
+                qp = prep_quad_group(ch, quad_table_log)
         if pp is None and qp is None:        # no other wire to weigh
             return "byte", p
-        wire = _pick_wire(ch, p, table_log, pp, qp, pair, quad)
+        with span("turbo.prep.pick"):
+            wire = _pick_wire(ch, p, table_log, pp, qp, pair, quad)
         return wire, {"byte": p, "pair": pp, "quad": qp}[wire]
 
     preps = _map(full_prep, chunks)
@@ -418,55 +431,56 @@ def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
     positional order, with device last.  device: torch device for the
     kernels; None = cuda (raises without one), "cpu" runs the plain
     PyTorch versions (a mesh of CPU entries, for the tests)."""
-    dev = resolve_device(device)
-    mesh_obj = _mesh_of(mesh, dev)
-    table_log, pair, quad = mode_flags(table_log, steptots, totals_only,
-                                       pair, quad)
-    check_byte_args(table_log, group_size)
-    if len(data) == 0:
-        return _HDR.pack(RANS_MAGIC, 0, 0, 0, FLAG_RAW, 0)
-    with _stage("c_prep", dev):
-        n_groups, results, batches = plan_encode(
-            data, group_size, table_log, pair, quad, pair_table_log,
-            quad_table_log)
-    sect_kind = ("totals" if totals_only else "rows") if steptots else None
+    with span("turbo.compress"):
+        dev = resolve_device(device)
+        mesh_obj = _mesh_of(mesh, dev)
+        table_log, pair, quad = mode_flags(table_log, steptots, totals_only,
+                                           pair, quad)
+        check_byte_args(table_log, group_size)
+        if len(data) == 0:
+            return _HDR.pack(RANS_MAGIC, 0, 0, 0, FLAG_RAW, 0)
+        with _stage("c_prep", dev):
+            n_groups, results, batches = plan_encode(
+                data, group_size, table_log, pair, quad, pair_table_log,
+                quad_table_log)
+        sect_kind = ("totals" if totals_only else "rows") if steptots else None
 
-    for (wire, n_pad, tlog), items in batches.items():
-        G = len(items)
-        debuglog(3, "turbo encode: %s batch of %d groups, n_pad=%d, tlog=%d",
-                 wire, G, n_pad, tlog)
-        with _stage("c_stage", dev):
-            fc, mg, srcw = STAGE_BATCH[wire](items, n_pad)
-        t4, hcap = _wire_t4(wire, n_pad), _hrows_cap(n_pad)
-        if mesh_obj is None:
-            with _stage("c_h2d", dev):
-                ins = to_tensors(dev, fc_tables=fc, magic_tables=mg,
-                                 src_words=srcw)
-            rowloc, st = encode_placement(wire, steptots, None)
-            with _stage("c_kernel", dev):
-                stream, fin, csize, stots = rans_encode2(
-                    ins["fc_tables"], ins["magic_tables"], ins["src_words"],
-                    t4, hcap, interpret, u16=wire == "pair", tlog=tlog,
-                    steptots=st, rowloc=rowloc, quad=wire == "quad")
-        else:
-            with _stage("c_kernel", dev):
-                stream, fin, csize, stots = _mesh_encode(
-                    mesh_obj, wire, fc, mg, srcw, t4, hcap, tlog, steptots,
-                    interpret)
-        with _stage("c_d2h", dev):
-            csize = csize[:G].cpu().numpy()
-            # the payload is the first csize halfwords: copy only the words used
-            used = (int(csize.max()) + 1) // 2
-            stream = stream[:G].reshape(G, -1)[:, :used].cpu().numpy()
-            fin = fin[:G].cpu().numpy()
-            stots = (stots[:G].cpu().numpy().astype(np.uint8) if sect_kind
-                     else [None] * G)
-        with _stage("c_frames", dev):
-            for j, (gi, ch, prep) in enumerate(items):
-                results[gi] = _encode_frame(ch, tlog, *_frame_head(wire, prep),
-                                            int(csize[j]), stream[j], fin[j],
-                                            stots[j], sect_kind)
-    return b"".join(results[gi] for gi in range(n_groups))
+        for (wire, n_pad, tlog), items in batches.items():
+            G = len(items)
+            debuglog(3, "turbo encode: %s batch of %d groups, n_pad=%d, tlog=%d",
+                     wire, G, n_pad, tlog)
+            with _stage("c_stage", dev):
+                fc, mg, srcw = STAGE_BATCH[wire](items, n_pad)
+            t4, hcap = _wire_t4(wire, n_pad), _hrows_cap(n_pad)
+            if mesh_obj is None:
+                with _stage("c_h2d", dev):
+                    ins = to_tensors(dev, fc_tables=fc, magic_tables=mg,
+                                     src_words=srcw)
+                rowloc, st = encode_placement(wire, steptots, None)
+                with _stage("c_kernel", dev):
+                    stream, fin, csize, stots = rans_encode2(
+                        ins["fc_tables"], ins["magic_tables"], ins["src_words"],
+                        t4, hcap, interpret, u16=wire == "pair", tlog=tlog,
+                        steptots=st, rowloc=rowloc, quad=wire == "quad")
+            else:
+                with _stage("c_kernel", dev):
+                    stream, fin, csize, stots = _mesh_encode(
+                        mesh_obj, wire, fc, mg, srcw, t4, hcap, tlog, steptots,
+                        interpret)
+            with _stage("c_d2h", dev):
+                csize = csize[:G].cpu().numpy()
+                # the payload is the first csize halfwords: copy only the words used
+                used = (int(csize.max()) + 1) // 2
+                stream = stream[:G].reshape(G, -1)[:, :used].cpu().numpy()
+                fin = fin[:G].cpu().numpy()
+                stots = (stots[:G].cpu().numpy().astype(np.uint8) if sect_kind
+                         else [None] * G)
+            with _stage("c_frames", dev):
+                for j, (gi, ch, prep) in enumerate(items):
+                    results[gi] = _encode_frame(ch, tlog, *_frame_head(wire, prep),
+                                                int(csize[j]), stream[j], fin[j],
+                                                stots[j], sect_kind)
+        return b"".join(results[gi] for gi in range(n_groups))
 
 
 def encode_placement(wire: str, steptots: bool,
@@ -673,43 +687,44 @@ def turbo_decompress_device(blob: bytes, interpret: bool = False,
     turbo_compress_device does; there, as in the JAX package, speed-wire
     batches all go through rans_decode_v2.  Raises ValueError on a corrupt
     group.  interpret, device: as turbo_compress_device."""
-    dev = resolve_device(device)
-    mesh_obj = _mesh_of(mesh, dev)
-    with _stage("d_parse", dev):
-        groups = parse_groups(blob)
-        pieces, batches = plan_decode(groups)
+    with span("turbo.decompress"):
+        dev = resolve_device(device)
+        mesh_obj = _mesh_of(mesh, dev)
+        with _stage("d_parse", dev):
+            groups = parse_groups(blob)
+            pieces, batches = plan_decode(groups)
 
-    for (wire, n_pad, tlog, kind), idxs in batches.items():
-        G = len(idxs)
-        debuglog(3, "turbo decode: %s batch of %d groups, n_pad=%d, tlog=%d, "
-                 "sect_kind=%d", wire, G, n_pad, tlog, kind)
-        with _stage("d_stage", dev):
-            cs, tbl, init, hws, tots, t4, hrows = stage_decode_batch(
-                groups, idxs, n_pad, tlog, wire, kind)
-        if mesh_obj is not None:
-            with _stage("d_kernel", dev):
-                outw, err = _mesh_decode(mesh_obj, wire, cs, tbl, init, hws,
-                                         tots, t4, hrows, tlog, interpret)
-        else:
-            with _stage("d_h2d", dev):
-                ins = to_tensors(dev, csize_hw=cs, tables=tbl,
-                                 init_states=init, streams=hws)
-                steptots = (to_tensors(dev, steptots=tots)["steptots"]
-                            if kind else None)
-            with _stage("d_kernel", dev):
-                outw, err = _decode_batch(wire, tuple(ins.values()), steptots,
-                                          t4, hrows, tlog, windows, interpret)
-        with _stage("d_d2h", dev):
-            err = err[:G].cpu().numpy()
-            if err.any():
-                raise ValueError(
-                    f"turbo-rans device decode: corrupt groups {np.nonzero(err)[0]}")
-            outw = outw[:G].cpu().numpy()
-        with _stage("d_copy", dev):
-            for j, i in enumerate(idxs):
-                pieces[i] = _group_bytes(wire, groups[i], outw[j])
-    with _stage("d_join", dev):
-        return b"".join(pieces[i] for i in range(len(groups)))
+        for (wire, n_pad, tlog, kind), idxs in batches.items():
+            G = len(idxs)
+            debuglog(3, "turbo decode: %s batch of %d groups, n_pad=%d, tlog=%d, "
+                     "sect_kind=%d", wire, G, n_pad, tlog, kind)
+            with _stage("d_stage", dev):
+                cs, tbl, init, hws, tots, t4, hrows = stage_decode_batch(
+                    groups, idxs, n_pad, tlog, wire, kind)
+            if mesh_obj is not None:
+                with _stage("d_kernel", dev):
+                    outw, err = _mesh_decode(mesh_obj, wire, cs, tbl, init, hws,
+                                             tots, t4, hrows, tlog, interpret)
+            else:
+                with _stage("d_h2d", dev):
+                    ins = to_tensors(dev, csize_hw=cs, tables=tbl,
+                                     init_states=init, streams=hws)
+                    steptots = (to_tensors(dev, steptots=tots)["steptots"]
+                                if kind else None)
+                with _stage("d_kernel", dev):
+                    outw, err = _decode_batch(wire, tuple(ins.values()), steptots,
+                                              t4, hrows, tlog, windows, interpret)
+            with _stage("d_d2h", dev):
+                err = err[:G].cpu().numpy()
+                if err.any():
+                    raise ValueError(
+                        f"turbo-rans device decode: corrupt groups {np.nonzero(err)[0]}")
+                outw = outw[:G].cpu().numpy()
+            with _stage("d_copy", dev):
+                for j, i in enumerate(idxs):
+                    pieces[i] = _group_bytes(wire, groups[i], outw[j])
+        with _stage("d_join", dev):
+            return b"".join(pieces[i] for i in range(len(groups)))
 
 
 # ---------------------------------------------------------------------------

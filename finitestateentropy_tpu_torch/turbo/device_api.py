@@ -26,22 +26,28 @@ batch by padded size as the host path's, ragged tails included.
 
 The entries run on the input's device: a CUDA tensor launches the CUDA
 kernels (their plain versions on the device when interpret=True), a CPU
-tensor runs the plain versions.  Each stage runs under a
-torch.profiler.record_function label ("resident.hist", ...), so a
-profiler trace splits a call by stage.
+tensor runs the plain versions.  Each entry and each of its stages is a
+span of utils/trace.py, which a running torch.profiler records and which
+costs one flag test when none runs: resident.compress holds
+resident.slice, hist, norm, tables, pad, encode, d2h and frames;
+resident.decompress holds resident.d_parse (the headers), d_h2d (raw
+groups' bytes, a batch's tables, words and step counts), d_stage (the
+decode inputs staged on the host), d_kernel (the launch), d_err (the host
+waits for the kernel's error flags) and d_join (the output sliced and
+joined).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..errors import GENERIC, FSEError
 from ..ops.hist import hist_count_masked
 from ..ops.norm import fse_normalize_batch
 from ..ops.rans_tables import pack_rans_ctables_batch, pack_rans_dtable_batch
 from ..refimpl.ncount import fse_write_ncount
+from ..utils.trace import span
 # MAX_GROUP: the JAX module's name for the group bound check_byte_args holds
 from .api import (DEFAULT_GROUP, MAX_GROUP, _hrows_cap, _round8, check_byte_args,  # noqa: F401
                   group_spans, parse_groups, stage_decode_batch)
@@ -71,11 +77,11 @@ def _resident_prep(xp: torch.Tensor, lens: torch.Tensor, n_pad: int,
     freqs sum to the table size) so they share the encode launch."""
     G, cols = xp.shape
     dev = xp.device
-    with record_function("resident.hist"):
+    with span("resident.hist"):
         counts = hist_count_masked(xp, cols, lens)
-    with record_function("resident.norm"):
+    with span("resident.norm"):
         norm, flags = fse_normalize_batch(counts, lens, table_log)
-    with record_function("resident.tables"):
+    with span("resident.tables"):
         raw = counts.max(dim=1).values <= (lens >> 7)
         flags = torch.where((flags != 1) & raw, 4, flags)
         idx = torch.arange(256, device=dev)
@@ -84,7 +90,7 @@ def _resident_prep(xp: torch.Tensor, lens: torch.Tensor, n_pad: int,
         delta = torch.where(idx == mfs[:, None], 1 << table_log, 0)
         norm_s = torch.where((flags == 0)[:, None], norm, delta).to(torch.int32)
         fc, mg = pack_rans_ctables_batch(norm_s)
-    with record_function("resident.pad"):
+    with span("resident.pad"):
         mfs_u8 = mfs.to(torch.uint8)[:, None]
         pos = torch.arange(cols, device=dev)
         padded = torch.where(pos < lens[:, None], xp, mfs_u8)
@@ -111,7 +117,7 @@ def _resident_compress(xp: torch.Tensor, lens: torch.Tensor, n_pad: int,
     stays within the stream's capacity)."""
     _counts, norm, flags, mfs, norm_s, fc, mg, srcw = _resident_prep(
         xp, lens, n_pad, table_log)
-    with record_function("resident.encode"):
+    with span("resident.encode"):
         stream, fin, csize, stots = rans_encode2(
             fc_tables=fc, magic_tables=mg, src_words=srcw,
             t4_count=n_pad // TURBO_STEP_SYMS, hrows_cap=_hrows_cap(n_pad),
@@ -165,73 +171,74 @@ def rans_compress_resident(x: torch.Tensor, group_size: int = DEFAULT_GROUP,
     steptots=False writes ratio-mode (v1) frames, totals_only=True the
     FLAG_TOTALS wire.  interpret=True runs the plain PyTorch versions of
     the kernels on x's device (None: False)."""
-    if table_log == 0:
-        table_log = RANS_SPEED_TABLELOG if steptots else RANS_TABLELOG
-    check_byte_args(table_log, group_size)
-    if x.dim() != 1:
-        raise ValueError(f"expected a 1-D tensor, got shape {tuple(x.shape)}")
-    interpret = bool(interpret)
-    n = int(x.shape[0])
-    if n == 0:
-        return _HDR.pack(RANS_MAGIC, 0, 0, 0, FLAG_RAW, 0)
-    x = x.to(torch.uint8)
-    n_groups, batches = _resident_batches(n, group_size)
-    results: dict[int, bytes] = {}
-    for n_pad, items in batches.items():
-        with record_function("resident.slice"):
-            xp, lens = _resident_slices(x, items, n_pad)
-        stream, fin, csize, stots, _norm_s, norm, flags, mfs, _srcw = \
-            _resident_compress(xp, lens, n_pad, table_log, steptots, interpret)
-        with record_function("resident.d2h"):
-            flags_np = flags.cpu().numpy()
-            if ((flags_np == 2) | (flags_np == 3)).any():
-                raise FSEError(GENERIC, "normalization failed on device "
-                               f"(flags {flags_np.tolist()})")
-            csize_np = csize.cpu().numpy()
-            norm_np = norm.cpu().numpy()
-            mfs_np = mfs.cpu().numpy()
-            fin_np = fin.cpu().numpy()
-            stots_np = stots.cpu().numpy().astype(np.uint8) if steptots else None
-            # pull only the words the coded groups use, in one transfer
-            coded = flags_np == 0
-            max_cs = int(csize_np[coded].max()) if coded.any() else 0
-            wrows = min(stream.shape[1],
-                        max(_round8(((max_cs + 1) // 2 + 127) // 128), 8))
-            stream_np = stream[:, :wrows].cpu().numpy()
-        with record_function("resident.frames"):
-            for j, (gi, st, ln) in enumerate(items):
-                if flags_np[j] == 1:   # RLE
-                    results[gi] = (_HDR.pack(RANS_MAGIC, ln, 0, 0, FLAG_RLE, 0)
-                                   + bytes([int(mfs_np[j])]) + b"\0" * 3)
-                    continue
-                if flags_np[j] == 4:   # near-uniform: straight to raw
-                    results[gi] = _raw_frame(x, st, ln)
-                    continue
-                cs = int(csize_np[j])
-                payload = stream_np[j].tobytes()[: 2 * cs]
-                max_sv = int(np.nonzero(norm_np[j])[0].max())
-                ncount = fse_write_ncount(norm_np[j][: max_sv + 1].tolist(),
-                                          max_sv, table_log)
-                if steptots and totals_only:
-                    sect = (stots_np[j].astype(np.uint16).sum(axis=1)
-                            .astype("<u2").tobytes())
-                    fl = FLAG_TOTALS
-                elif steptots:
-                    packed = _pack_rows4(stots_np[j])
-                    if packed is not None:
-                        sect, fl = packed, FLAG_STEPTOTS | FLAG_ROWS4
+    with span("resident.compress"):
+        if table_log == 0:
+            table_log = RANS_SPEED_TABLELOG if steptots else RANS_TABLELOG
+        check_byte_args(table_log, group_size)
+        if x.dim() != 1:
+            raise ValueError(f"expected a 1-D tensor, got shape {tuple(x.shape)}")
+        interpret = bool(interpret)
+        n = int(x.shape[0])
+        if n == 0:
+            return _HDR.pack(RANS_MAGIC, 0, 0, 0, FLAG_RAW, 0)
+        x = x.to(torch.uint8)
+        n_groups, batches = _resident_batches(n, group_size)
+        results: dict[int, bytes] = {}
+        for n_pad, items in batches.items():
+            with span("resident.slice"):
+                xp, lens = _resident_slices(x, items, n_pad)
+            stream, fin, csize, stots, _norm_s, norm, flags, mfs, _srcw = \
+                _resident_compress(xp, lens, n_pad, table_log, steptots, interpret)
+            with span("resident.d2h"):
+                flags_np = flags.cpu().numpy()
+                if ((flags_np == 2) | (flags_np == 3)).any():
+                    raise FSEError(GENERIC, "normalization failed on device "
+                                   f"(flags {flags_np.tolist()})")
+                csize_np = csize.cpu().numpy()
+                norm_np = norm.cpu().numpy()
+                mfs_np = mfs.cpu().numpy()
+                fin_np = fin.cpu().numpy()
+                stots_np = stots.cpu().numpy().astype(np.uint8) if steptots else None
+                # pull only the words the coded groups use, in one transfer
+                coded = flags_np == 0
+                max_cs = int(csize_np[coded].max()) if coded.any() else 0
+                wrows = min(stream.shape[1],
+                            max(_round8(((max_cs + 1) // 2 + 127) // 128), 8))
+                stream_np = stream[:, :wrows].cpu().numpy()
+            with span("resident.frames"):
+                for j, (gi, st, ln) in enumerate(items):
+                    if flags_np[j] == 1:   # RLE
+                        results[gi] = (_HDR.pack(RANS_MAGIC, ln, 0, 0, FLAG_RLE, 0)
+                                       + bytes([int(mfs_np[j])]) + b"\0" * 3)
+                        continue
+                    if flags_np[j] == 4:   # near-uniform: straight to raw
+                        results[gi] = _raw_frame(x, st, ln)
+                        continue
+                    cs = int(csize_np[j])
+                    payload = stream_np[j].tobytes()[: 2 * cs]
+                    max_sv = int(np.nonzero(norm_np[j])[0].max())
+                    ncount = fse_write_ncount(norm_np[j][: max_sv + 1].tolist(),
+                                              max_sv, table_log)
+                    if steptots and totals_only:
+                        sect = (stots_np[j].astype(np.uint16).sum(axis=1)
+                                .astype("<u2").tobytes())
+                        fl = FLAG_TOTALS
+                    elif steptots:
+                        packed = _pack_rows4(stots_np[j])
+                        if packed is not None:
+                            sect, fl = packed, FLAG_STEPTOTS | FLAG_ROWS4
+                        else:
+                            sect, fl = stots_np[j].reshape(-1).tobytes(), FLAG_STEPTOTS
                     else:
-                        sect, fl = stots_np[j].reshape(-1).tobytes(), FLAG_STEPTOTS
-                else:
-                    sect, fl = b"", 0
-                blob = (_HDR.pack(RANS_MAGIC, ln, cs, table_log, fl, len(ncount))
-                        + ncount + b"\0" * (-len(ncount) % 4)
-                        + fin_np[j].reshape(-1).view(np.uint32).astype("<u4").tobytes()
-                        + sect + payload)
-                if len(blob) >= ln + _HDR.size:   # incompressible
-                    blob = _raw_frame(x, st, ln)
-                results[gi] = blob
-    return b"".join(results[gi] for gi in range(n_groups))
+                        sect, fl = b"", 0
+                    blob = (_HDR.pack(RANS_MAGIC, ln, cs, table_log, fl, len(ncount))
+                            + ncount + b"\0" * (-len(ncount) % 4)
+                            + fin_np[j].reshape(-1).view(np.uint32).astype("<u4").tobytes()
+                            + sect + payload)
+                    if len(blob) >= ln + _HDR.size:   # incompressible
+                        blob = _raw_frame(x, st, ln)
+                    results[gi] = blob
+        return b"".join(results[gi] for gi in range(n_groups))
 
 
 def rans_decompress_resident(blob: bytes, interpret: bool | None = None,
@@ -245,50 +252,64 @@ def rans_decompress_resident(blob: bytes, interpret: bool | None = None,
     pair and quad groups (the resident encode never writes them; use
     turbo_decompress_device) and on a corrupt group.  device: None = cuda
     (raises without one); "cpu" runs the plain versions."""
-    dev = resolve_device(device)
-    interpret = bool(interpret)
-    groups = parse_groups(blob)
-    pieces: list = [None] * len(groups)
-    batches: dict[tuple[int, int, int], list[int]] = {}
-    for i, g in enumerate(groups):
-        if len(g) != 9:
-            raise ValueError(
-                "resident decode does not support FLAG_PAIR / FLAG_QUAD "
-                "groups; use turbo_decompress_device (turbo/api.py)")
-        n, _cs, tlog, flags, _norm, _msv, _init, payload, stots = g
-        if flags & FLAG_RAW:
-            pieces[i] = torch.from_numpy(
-                np.frombuffer(payload, np.uint8)[:n].copy()).to(dev)
-        elif flags & FLAG_RLE:
-            pieces[i] = torch.full((n,), payload[0], dtype=torch.uint8,
-                                   device=dev)
-        else:
-            kind = 0 if stots is None else stots.ndim
-            batches.setdefault((_pad_n(n), tlog, kind), []).append(i)
+    with span("resident.decompress"):
+        dev = resolve_device(device)
+        interpret = bool(interpret)
+        with span("resident.d_parse"):
+            groups = parse_groups(blob)
+            pieces: list = [None] * len(groups)
+            raws: list[int] = []
+            batches: dict[tuple[int, int, int], list[int]] = {}
+            for i, g in enumerate(groups):
+                if len(g) != 9:
+                    raise ValueError(
+                        "resident decode does not support FLAG_PAIR / FLAG_QUAD "
+                        "groups; use turbo_decompress_device (turbo/api.py)")
+                n, _cs, tlog, flags, _norm, _msv, _init, payload, stots = g
+                if flags & FLAG_RAW:
+                    raws.append(i)
+                elif flags & FLAG_RLE:
+                    pieces[i] = torch.full((n,), payload[0], dtype=torch.uint8,
+                                           device=dev)
+                else:
+                    kind = 0 if stots is None else stots.ndim
+                    batches.setdefault((_pad_n(n), tlog, kind), []).append(i)
+        with span("resident.d_h2d"):
+            for i in raws:           # raw groups go up as they are
+                pieces[i] = torch.from_numpy(np.frombuffer(
+                    groups[i][7], np.uint8)[:groups[i][0]].copy()).to(dev)
 
-    for (n_pad, tlog, kind), idxs in batches.items():
-        G = len(idxs)
-        cs, tbl, init, hws, tots, t4, hrows = stage_decode_batch(
-            groups, idxs, n_pad, tlog, "byte", kind)
-        ins = to_tensors(dev, csize_hw=cs, tables=tbl, init_states=init,
-                         streams=hws)
-        if kind:
-            outw, err = rans_decode_v2(
-                **ins, steptots=to_tensors(dev, steptots=tots)["steptots"],
-                t4_count=t4, hrows=hrows, tlog=tlog, interpret=interpret)
-        else:
-            outw, err = rans_decode(**ins, t4_count=t4, hrows=hrows, tlog=tlog,
-                                    interpret=interpret)
-        err_np = err.cpu().numpy()
-        if err_np.any():
-            raise ValueError(
-                f"resident decode: corrupt groups {np.nonzero(err_np)[0]}")
-        flat = outw.view(torch.uint8).view(G, -1)   # little-endian words
-        for j, i in enumerate(idxs):
-            pieces[i] = flat[j, : groups[i][0]]
-    if not pieces:
-        return torch.zeros(0, dtype=torch.uint8, device=dev)
-    return torch.cat(pieces)
+        for (n_pad, tlog, kind), idxs in batches.items():
+            G = len(idxs)
+            with span("resident.d_stage"):
+                cs, tbl, init, hws, tots, t4, hrows = stage_decode_batch(
+                    groups, idxs, n_pad, tlog, "byte", kind)
+            with span("resident.d_h2d"):
+                ins = to_tensors(dev, csize_hw=cs, tables=tbl, init_states=init,
+                                 streams=hws)
+                steptots = (to_tensors(dev, steptots=tots)["steptots"]
+                            if kind else None)
+            with span("resident.d_kernel"):
+                if kind:
+                    outw, err = rans_decode_v2(
+                        **ins, steptots=steptots, t4_count=t4, hrows=hrows,
+                        tlog=tlog, interpret=interpret)
+                else:
+                    outw, err = rans_decode(**ins, t4_count=t4, hrows=hrows,
+                                            tlog=tlog, interpret=interpret)
+            with span("resident.d_err"):
+                err_np = err.cpu().numpy()
+                if err_np.any():
+                    raise ValueError(
+                        f"resident decode: corrupt groups {np.nonzero(err_np)[0]}")
+            with span("resident.d_join"):
+                flat = outw.view(torch.uint8).view(G, -1)   # little-endian words
+                for j, i in enumerate(idxs):
+                    pieces[i] = flat[j, : groups[i][0]]
+        with span("resident.d_join"):
+            if not pieces:
+                return torch.zeros(0, dtype=torch.uint8, device=dev)
+            return torch.cat(pieces)
 
 
 def rans_resident_roundtrip(x: torch.Tensor, group_size: int = DEFAULT_GROUP,

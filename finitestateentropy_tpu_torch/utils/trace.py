@@ -1,0 +1,37 @@
+"""Program spans: named host ranges that torch.profiler records.
+
+Every span of the port goes through span(name).  With no profiler
+collecting, it returns one shared no-op context and never enters
+torch.profiler.record_function, whose bookkeeping costs microseconds a
+call even when nothing records it.  Under torch.profiler (or any other
+profiler that records record_function ranges) it is record_function(name).
+There is no switch of its own: run torch.profiler around the calls.
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        turbo_compress_device(data)
+    p.export_chrome_trace("trace.json")   # turbo.compress > turbo.c_prep > ...
+"""
+from __future__ import annotations
+
+from contextlib import nullcontext
+
+import torch
+from torch.profiler import record_function
+
+_OFF = nullcontext()
+_collecting = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context manager that marks the enclosed host work as `name` in a
+    profiler's trace, and does nothing when no profiler is collecting.
+
+    Spans share the device trace's clock: in a torch.profiler trace with
+    CUDA activity, the kernels and copies a span launched lie on the same
+    microsecond axis.  Nesting on the calling thread is the parent link: an
+    entry point's span (turbo.compress, resident.decompress, ...) holds all
+    the spans of that call.  Spans opened on pool threads (the workers of
+    turbo/api.py's _map) are not recorded; only work on the calling thread
+    is named."""
+    return record_function(name) if _collecting() else _OFF
