@@ -178,13 +178,13 @@ def _walk_groups(blob: bytes):
         if flags & 32:           # FLAG_PAIR: sized by the full parser
             from .turbo.pair import parse_pair_group
 
-            _g, used = parse_pair_group(blob[pos:])
+            _g, used = parse_pair_group(memoryview(blob)[pos:])
             pair_spans.append((pos, used, total))
             pos += used
         elif flags & 128:        # FLAG_QUAD: same twin-fallback routing
             from .turbo.quad import parse_quad_group
 
-            _g, used = parse_quad_group(blob[pos:])
+            _g, used = parse_quad_group(memoryview(blob)[pos:])
             pair_spans.append((pos, used, total))
             pos += used
         elif flags & 1:          # raw

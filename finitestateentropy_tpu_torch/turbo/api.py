@@ -590,10 +590,13 @@ def stage_decode_batch(groups, idxs, n_pad: int, tlog: int,
 
 
 def parse_groups(blob: bytes) -> list:
-    """Every group of a TurboRANS stream, parsed (parse_rans_group)."""
-    groups, pos = [], 0
-    while pos < len(blob):
-        g, used = parse_rans_group(blob[pos:])
+    """Every group of a TurboRANS stream, parsed (parse_rans_group) in
+    place: each group's parser reads a view of blob at the group's offset,
+    so a payload (a raw group's bytes too) is a memoryview of blob,
+    and no group copies the rest of the stream."""
+    view, groups, pos = memoryview(blob), [], 0
+    while pos < len(view):
+        g, used = parse_rans_group(view[pos:])
         groups.append(g)
         pos += used
     return groups
@@ -842,10 +845,11 @@ def turbo16_compress_device(symbols: np.ndarray, group_syms: int = 1 << 19,
 
 
 def parse_groups16(blob: bytes) -> list:
-    """Every group of a TurboRANS-U16 stream, parsed (parse_rans16_group)."""
-    groups, pos = [], 0
-    while pos < len(blob):
-        g, used = parse_rans16_group(blob[pos:])
+    """Every group of a TurboRANS-U16 stream, parsed (parse_rans16_group)
+    in place, as parse_groups: payloads are memoryviews of blob."""
+    view, groups, pos = memoryview(blob), [], 0
+    while pos < len(view):
+        g, used = parse_rans16_group(view[pos:])
         groups.append(g)
         pos += used
     return groups

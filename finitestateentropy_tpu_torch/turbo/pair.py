@@ -248,7 +248,7 @@ def parse_pair_group(blob: bytes):
     if magic != RANS_MAGIC or not flags & FLAG_PAIR:
         raise ValueError("not a turbo-pair group")
     pos = _HDR.size
-    norm, max_sv, rtlog, used = fse_read_ncount(blob[pos : pos + nc_len + 8])
+    norm, max_sv, rtlog, used = fse_read_ncount(bytes(blob[pos : pos + nc_len + 8]))
     if rtlog != tlog or used > nc_len + 1:
         raise ValueError("turbo-pair ncount corrupt")
     pos += nc_len + (-nc_len % 4)
@@ -278,7 +278,7 @@ def parse_pair_group(blob: bytes):
     T = _pad_n16((n + 1) // 2) // TURBO_LANES
     if flags & 4:                        # FLAG_STEPTOTS
         if flags & 16:                   # FLAG_ROWS4
-            steptots, u = _unpack_rows4(blob[pos:], T)
+            steptots, u = _unpack_rows4(memoryview(blob)[pos:], T)
             pos += u
         else:
             steptots = np.frombuffer(blob[pos : pos + T * 8],

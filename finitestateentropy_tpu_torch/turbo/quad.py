@@ -233,7 +233,7 @@ def parse_quad_group(blob: bytes):
     if not flags & 4:
         raise ValueError("turbo-quad group missing steptots (corrupt)")
     pos = _HDR.size
-    norm, max_sv, rtlog, used = fse_read_ncount(blob[pos : pos + nc_len + 8])
+    norm, max_sv, rtlog, used = fse_read_ncount(bytes(blob[pos : pos + nc_len + 8]))
     if rtlog != tlog or used > nc_len + 1:
         raise ValueError("turbo-quad ncount corrupt")
     pos += nc_len + (-nc_len % 4)
@@ -260,7 +260,7 @@ def parse_quad_group(blob: bytes):
     pos += 4 * TURBO_LANES
     T = _pad_q(n_quads) // TURBO_LANES
     if flags & 16:                       # FLAG_ROWS4
-        steptots, u = _unpack_rows4(blob[pos:], T)
+        steptots, u = _unpack_rows4(memoryview(blob)[pos:], T)
         pos += u
     else:
         steptots = np.frombuffer(blob[pos : pos + T * 8],

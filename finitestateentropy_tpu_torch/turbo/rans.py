@@ -241,6 +241,10 @@ def rans_compress(data: bytes, table_log: int = 0,
 
 
 def parse_rans_group(blob: bytes):
+    """One group at the start of blob (bytes or a memoryview) -> (9-tuple,
+    bytes used); FLAG_PAIR / FLAG_QUAD groups go to their parsers (an
+    11-tuple).  The payload is a slice of blob, so a view in gives a view
+    out; the sections that become arrays are copies."""
     magic, n, csize_hw, table_log, flags, nc_len = _HDR.unpack_from(blob, 0)
     if magic != RANS_MAGIC:
         raise ValueError("bad turbo-rans magic")
@@ -261,7 +265,7 @@ def parse_rans_group(blob: bytes):
     # the reference reader needs look-ahead slack beyond the NCount bytes
     # (entropy_common.c reads 4-byte words; an exact-size buffer is rejected
     # even by the reference) — the init_states section provides it
-    norm, max_sv, tlog, used = fse_read_ncount(blob[pos : pos + nc_len + 8])
+    norm, max_sv, tlog, used = fse_read_ncount(bytes(blob[pos : pos + nc_len + 8]))
     assert tlog == table_log and used <= nc_len + 1
     pos += nc_len + (-nc_len % 4)
     init = np.frombuffer(blob[pos : pos + 4 * TURBO_LANES], dtype="<u4").copy()
@@ -270,7 +274,7 @@ def parse_rans_group(blob: bytes):
     if flags & FLAG_STEPTOTS:
         T = _pad_n(n) // TURBO_LANES
         if flags & FLAG_ROWS4:
-            steptots, used = _unpack_rows4(blob[pos:], T)
+            steptots, used = _unpack_rows4(memoryview(blob)[pos:], T)
             pos += used
         else:
             steptots = np.frombuffer(blob[pos : pos + T * 8],

@@ -155,7 +155,7 @@ def parse_rans16_group(blob: bytes):
                 None), pos + 2 * n
     if flags & FLAG_RLE:
         return (n, 0, 0, flags, None, 0, None, blob[pos : pos + 2], None), pos + 4
-    norm, max_sv, tlog, used = fse_read_ncount(blob[pos : pos + nc_len + 8],
+    norm, max_sv, tlog, used = fse_read_ncount(bytes(blob[pos : pos + nc_len + 8]),
                                                RANS16_MAX_SYMBOL)
     assert tlog == table_log and used <= nc_len + 1
     pos += nc_len + (-nc_len % 4)

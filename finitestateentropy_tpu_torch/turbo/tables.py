@@ -24,11 +24,12 @@ def stream_word_rows(hrows: int) -> int:
 
 
 def pack_stream_words(payload: bytes, srows: int) -> np.ndarray:
-    """Stage a wire payload into the packed [srows,128] i32 word layout the
-    decode kernels consume — a pure numpy view, no per-halfword work."""
+    """Stage a wire payload (bytes or a memoryview) into the packed
+    [srows,128] i32 word layout the decode kernels consume: one copy of
+    its bytes into the zeroed words, no per-halfword work."""
     out = np.zeros(srows * 128, np.int32)
-    w = np.frombuffer(payload + b"\0" * (-len(payload) % 4), "<u4")
-    out[: len(w)] = w.view(np.int32)
+    b = np.frombuffer(payload, np.uint8)
+    out.view(np.uint8)[: len(b)] = b
     return out.reshape(srows, 128)
 
 
