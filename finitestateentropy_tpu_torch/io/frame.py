@@ -9,9 +9,18 @@ The codec is *batch oriented*: the frame layer extracts all blocks, hands the
 whole batch to a codec (host twin or TPU batched pipeline), and reassembles
 frames in input order — this is the host<->device boundary (the reference
 crosses into the codec per block at fileio.c:343; we cross once per batch).
+
+Spans (utils/trace.py): compress_bytes is "frame.compress", holding
+"frame.c_blocks" (the split and the batch compressor), "frame.c_write"
+(block descriptors and payloads) and "frame.c_checksum" (XXH32 of the input,
+the trailer); decompress_bytes is "frame.decompress", holding "frame.d_read"
+(header and block walk), "frame.d_blocks" (the batch decompressor),
+"frame.d_write" (blocks, raw and RLE runs joined) and "frame.d_checksum".
 """
 from __future__ import annotations
 
+import sys
+from contextlib import nullcontext
 from typing import Callable, Iterable, Sequence
 
 from ..config import (
@@ -36,6 +45,19 @@ CODEC_BY_MAGIC = {v: k for k, v in MAGIC_BY_CODEC.items()}
 # codec callables are batch-level: list[bytes] -> list[BlockResult]
 BatchCompressor = Callable[[Sequence[bytes]], Sequence[BlockResult]]
 BatchDecompressor = Callable[[Sequence[tuple[bytes, int]]], Sequence[bytes]]
+
+_OFF = nullcontext()
+
+
+def _span(name: str):
+    """utils/trace.span(name) once torch is loaded.  Before that no
+    profiler can be collecting, and the host twins' frames (the CLI's
+    --device host) never load torch for a span."""
+    if "torch" not in sys.modules:
+        return _OFF
+    from ..utils.trace import span as trace_span
+
+    return trace_span(name)
 
 
 def _host_batch_compressor(codec: str) -> BatchCompressor:
@@ -85,115 +107,124 @@ def compress_bytes(
     compressor: BatchCompressor | None = None,
 ) -> bytes:
     """Compress a whole buffer into a frame (identical bytes to the ref CLI)."""
-    if block_size_id > FIO_MAX_BLOCKSIZE_ID:
-        raise FSEError(GENERIC, "block size id too large")
-    block_size = 1 << (10 + block_size_id)
-    if compressor is None:
-        compressor = _host_batch_compressor(codec)
+    with _span("frame.compress"):
+        if block_size_id > FIO_MAX_BLOCKSIZE_ID:
+            raise FSEError(GENERIC, "block size id too large")
+        block_size = 1 << (10 + block_size_id)
+        if compressor is None:
+            compressor = _host_batch_compressor(codec)
 
-    out = bytearray()
-    out += MAGIC_BY_CODEC[codec].to_bytes(4, "little")
-    out.append(block_size_id)
+        with _span("frame.c_blocks"):
+            blocks = split_blocks(data, block_size)
+            results = compressor(blocks)
+        with _span("frame.c_write"):
+            out = bytearray()
+            out += MAGIC_BY_CODEC[codec].to_bytes(4, "little")
+            out.append(block_size_id)
+            for chunk, r in zip(blocks, results):
+                full = len(chunk) == block_size
+                if r.kind == Kind.COMPRESSED:
+                    c = r.data
+                    if full:
+                        out += bytes([(BT_COMPRESSED << 6) + 0x20, len(c) >> 8,
+                                      len(c) & 0xFF])
+                    else:
+                        out += bytes(
+                            [
+                                BT_COMPRESSED << 6,
+                                len(chunk) >> 8,
+                                len(chunk) & 0xFF,
+                                len(c) >> 8,
+                                len(c) & 0xFF,
+                            ]
+                        )
+                    out += c
+                elif r.kind == Kind.RAW:
+                    if full:
+                        out += bytes([(BT_RAW << 6) + 0x20])
+                    else:
+                        out += bytes([BT_RAW << 6, len(chunk) >> 8, len(chunk) & 0xFF])
+                    out += chunk
+                else:  # RLE
+                    if full:
+                        out += bytes([(BT_RLE << 6) + 0x20])
+                    else:
+                        out += bytes([BT_RLE << 6, len(chunk) >> 8, len(chunk) & 0xFF])
+                    out.append(chunk[0])
 
-    blocks = split_blocks(data, block_size)
-    results = compressor(blocks)
-    for chunk, r in zip(blocks, results):
-        full = len(chunk) == block_size
-        if r.kind == Kind.COMPRESSED:
-            c = r.data
-            if full:
-                out += bytes([(BT_COMPRESSED << 6) + 0x20, len(c) >> 8, len(c) & 0xFF])
-            else:
-                out += bytes(
-                    [
-                        BT_COMPRESSED << 6,
-                        len(chunk) >> 8,
-                        len(chunk) & 0xFF,
-                        len(c) >> 8,
-                        len(c) & 0xFF,
-                    ]
-                )
-            out += c
-        elif r.kind == Kind.RAW:
-            if full:
-                out += bytes([(BT_RAW << 6) + 0x20])
-            else:
-                out += bytes([BT_RAW << 6, len(chunk) >> 8, len(chunk) & 0xFF])
-            out += chunk
-        else:  # RLE
-            if full:
-                out += bytes([(BT_RLE << 6) + 0x20])
-            else:
-                out += bytes([BT_RLE << 6, len(chunk) >> 8, len(chunk) & 0xFF])
-            out.append(chunk[0])
-
-    crc = (xxh32(data, FSE_CHECKSUM_SEED) >> 5) & ((1 << 22) - 1)
-    out += bytes([(crc >> 16) + (BT_CRC << 6), (crc >> 8) & 0xFF, crc & 0xFF])
-    return bytes(out)
+        with _span("frame.c_checksum"):
+            crc = (xxh32(data, FSE_CHECKSUM_SEED) >> 5) & ((1 << 22) - 1)
+            out += bytes([(crc >> 16) + (BT_CRC << 6), (crc >> 8) & 0xFF, crc & 0xFF])
+        return bytes(out)
 
 
 def decompress_bytes(frame: bytes, decompressor: BatchDecompressor | None = None) -> bytes:
     """Decompress a frame; verifies the 22-bit trailer checksum."""
-    if len(frame) < 8:
-        raise CorruptionError("frame too small")
-    magic = int.from_bytes(frame[0:4], "little")
-    codec = CODEC_BY_MAGIC.get(magic)
-    if codec is None:
-        raise CorruptionError("unknown magic number")
-    block_size_id = frame[4]
-    if block_size_id > FIO_MAX_BLOCKSIZE_ID:
-        raise CorruptionError("unknown blockSizeID")
-    block_size = 1 << (10 + block_size_id)
-    if decompressor is None:
-        decompressor = _host_batch_decompressor(codec)
+    with _span("frame.decompress"):
+        with _span("frame.d_read"):
+            if len(frame) < 8:
+                raise CorruptionError("frame too small")
+            magic = int.from_bytes(frame[0:4], "little")
+            codec = CODEC_BY_MAGIC.get(magic)
+            if codec is None:
+                raise CorruptionError("unknown magic number")
+            block_size_id = frame[4]
+            if block_size_id > FIO_MAX_BLOCKSIZE_ID:
+                raise CorruptionError("unknown blockSizeID")
+            block_size = 1 << (10 + block_size_id)
+            if decompressor is None:
+                decompressor = _host_batch_decompressor(codec)
 
-    pos = 5
-    todo: list[tuple[bytes, int]] = []   # compressed blocks for the batch codec
-    plan: list[tuple[int, object]] = []  # (btype, payload-or-index)
-    while True:
-        if pos >= len(frame):
-            raise CorruptionError("missing frame trailer")
-        desc = frame[pos]
-        btype = desc >> 6
-        if btype == BT_CRC:
-            break
-        full = bool(desc & 0x20)
-        pos += 1
-        rsize = block_size
-        if not full:
-            rsize = (frame[pos] << 8) | frame[pos + 1]
-            pos += 2
-        if btype == BT_COMPRESSED:
-            csize = (frame[pos] << 8) | frame[pos + 1]
-            pos += 2
-            plan.append((btype, len(todo)))
-            todo.append((frame[pos : pos + csize], rsize))
-        elif btype == BT_RAW:
-            csize = rsize
-            plan.append((btype, frame[pos : pos + csize]))
-        elif btype == BT_RLE:
-            csize = 1
-            plan.append((btype, (frame[pos], rsize)))
-        else:
-            raise CorruptionError("bad block type")
-        pos += csize
+            pos = 5
+            todo: list[tuple[bytes, int]] = []   # compressed blocks for the batch codec
+            plan: list[tuple[int, object]] = []  # (btype, payload-or-index)
+            while True:
+                if pos >= len(frame):
+                    raise CorruptionError("missing frame trailer")
+                desc = frame[pos]
+                btype = desc >> 6
+                if btype == BT_CRC:
+                    break
+                full = bool(desc & 0x20)
+                pos += 1
+                rsize = block_size
+                if not full:
+                    rsize = (frame[pos] << 8) | frame[pos + 1]
+                    pos += 2
+                if btype == BT_COMPRESSED:
+                    csize = (frame[pos] << 8) | frame[pos + 1]
+                    pos += 2
+                    plan.append((btype, len(todo)))
+                    todo.append((frame[pos : pos + csize], rsize))
+                elif btype == BT_RAW:
+                    csize = rsize
+                    plan.append((btype, frame[pos : pos + csize]))
+                elif btype == BT_RLE:
+                    csize = 1
+                    plan.append((btype, (frame[pos], rsize)))
+                else:
+                    raise CorruptionError("bad block type")
+                pos += csize
 
-    decoded = decompressor(todo) if todo else []
-    out = bytearray()
-    for btype, info in plan:
-        if btype == BT_COMPRESSED:
-            out += decoded[info]
-        elif btype == BT_RAW:
-            out += info
-        else:
-            byte, rsize = info
-            out += bytes([byte]) * rsize
+        with _span("frame.d_blocks"):
+            decoded = decompressor(todo) if todo else []
+        with _span("frame.d_write"):
+            out = bytearray()
+            for btype, info in plan:
+                if btype == BT_COMPRESSED:
+                    out += decoded[info]
+                elif btype == BT_RAW:
+                    out += info
+                else:
+                    byte, rsize = info
+                    out += bytes([byte]) * rsize
 
-    saved = frame[pos + 2] + (frame[pos + 1] << 8) + ((frame[pos] & 0x3F) << 16)
-    calc = (xxh32(bytes(out), FSE_CHECKSUM_SEED) >> 5) & ((1 << 22) - 1)
-    if saved != calc:
-        raise CorruptionError("frame checksum mismatch")
-    return bytes(out)
+        with _span("frame.d_checksum"):
+            saved = frame[pos + 2] + (frame[pos + 1] << 8) + ((frame[pos] & 0x3F) << 16)
+            calc = (xxh32(bytes(out), FSE_CHECKSUM_SEED) >> 5) & ((1 << 22) - 1)
+            if saved != calc:
+                raise CorruptionError("frame checksum mismatch")
+        return bytes(out)
 
 
 def compress_file(src_path, dst_path, codec="fse", block_size_id=FIO_BLOCKSIZEID_DEFAULT,

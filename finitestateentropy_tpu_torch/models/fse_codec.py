@@ -7,16 +7,18 @@ chains (ops/fse_kernels.py, the CUDA kernels) run batched on the codec's
 device, one launch a side for a whole batch.  The raw / RLE decisions are
 the JAX codec's, so the frames are byte-identical to the host twin's.
 
-``stage_seconds`` (off by default) times the stages of every codec call,
-as turbo/api.py's does: set it to a dict and each stage adds its seconds
-under its name ("c_prep", "c_stage", "c_h2d", "c_tables", "c_encode",
-"c_d2h", "c_frames"; "d_parse", "d_h2d", "d_tables", "d_decode", "d_d2h",
-"d_out"), a device stage ending in a sync.  The Huff0 codec records
-into the same dict.
+Each stage of a codec call is the span "fse.<stage>" (utils/trace.py:
+"c_prep", "c_stage", "c_h2d", "c_tables", "c_encode", "c_d2h", "c_frames";
+"d_parse", "d_h2d", "d_tables", "d_decode", "d_d2h", "d_out"), which a
+running torch.profiler records, with no sync.  ``stage_seconds`` (off by
+default) also times them, as turbo/api.py's does: set it to a dict and
+each stage adds its seconds under its name, a device stage ending in a
+sync.  The Huff0 codec's stages ("huf.<stage>") record into the same dict.
 """
 from __future__ import annotations
 
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -28,25 +30,27 @@ from ..refimpl.blocktypes import BlockResult
 from ..refimpl.ncount import fse_read_ncount, fse_write_ncount
 from ..refimpl.norm import fse_normalize_count, fse_optimal_table_log
 from ..turbo.state import resolve_device
+from ..utils.trace import span
 
 stage_seconds: dict | None = None
 
 
-class _Stages:
-    """Adds each stage's seconds to stage_seconds while it is a dict."""
-
-    def __init__(self, dev: torch.device):
-        self.dev = dev
-        self.t = time.perf_counter()
-
-    def mark(self, name: str, sync: bool = False) -> None:
+@contextmanager
+def _stage(name: str, dev: torch.device, sync: bool = False):
+    """The enclosed stage is the span `name` ("fse.c_prep", "huf.d_decode",
+    ...).  While stage_seconds is a dict it also adds the stage's wall
+    seconds under the name's last part, a stage with sync=True ending in a
+    device sync first; off (None), nothing syncs."""
+    with span(name):
         if stage_seconds is None:
+            yield
             return
-        if sync and self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        now = time.perf_counter()
-        stage_seconds[name] = stage_seconds.get(name, 0.0) + now - self.t
-        self.t = now
+        t0 = time.perf_counter()
+        yield
+        if sync and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        key = name.split(".", 1)[1]
+        stage_seconds[key] = stage_seconds.get(key, 0.0) + time.perf_counter() - t0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -147,40 +151,41 @@ class FseTpuCodec:
     def compress_blocks(self, blocks):
         from ..ops import fse_kernels, fse_tables
 
-        st = _Stages(self.device)
-        results, todo = self.encode_plan(blocks)
-        st.mark("c_prep")
-        if todo:
+        dev = self.device
+        with _stage("fse.c_prep", dev):
+            results, todo = self.encode_plan(blocks)
+        if not todo:
+            return results
+        with _stage("fse.c_stage", dev):
             e = self.encode_inputs(todo)
             B, S, out_bytes = len(todo), e["max_syms"], e["out_bytes"]
-            st.mark("c_stage")
             mesh = self._get_mesh()
-            if mesh is not None:
-                from ..parallel.dp import sharded_encode
+        if mesh is not None:
+            from ..parallel.dp import sharded_encode
 
+            with _stage("fse.c_encode", dev, sync=True):
                 padded = _pad_batch([e["src"], e["n"], e["norm"], e["tlog"]],
                                     mesh.devices.size)
                 words, csize, _total = sharded_encode(mesh, S, out_bytes)(*padded)
-                st.mark("c_encode", sync=True)
-            else:
+        else:
+            with _stage("fse.c_h2d", dev, sync=True):
                 src, ns, norms, tlogs = (self._tensor(e[k]) for k in
                                          ("src", "n", "norm", "tlog"))
-                st.mark("c_h2d", sync=True)
+            with _stage("fse.c_tables", dev, sync=True):
                 ctables = fse_tables.build_ctables(norms, tlogs)
-                st.mark("c_tables", sync=True)
+            with _stage("fse.c_encode", dev, sync=True):
                 words, csize = fse_kernels.fse_encode_batch(
                     src, ns, tlogs, ctables, max_syms=S, out_bytes=out_bytes)
-                st.mark("c_encode", sync=True)
+        with _stage("fse.c_d2h", dev):
             csize = csize[:B].cpu().numpy()
             words = _pull_words(words[:B], csize)
-            st.mark("c_d2h")
+        with _stage("fse.c_frames", dev):
             for k, (i, b, _norm, _tlog, hdr) in enumerate(todo):
                 payload = words[k].astype("<i4").tobytes()[: csize[k]]
                 if csize[k] == 0 or len(hdr) + len(payload) >= len(b) - 1:
                     results[i] = BlockResult.raw()
                 else:
                     results[i] = BlockResult.compressed(hdr + payload)
-            st.mark("c_frames")
         return results
 
     # -- decompression ----------------------------------------------------
@@ -214,34 +219,34 @@ class FseTpuCodec:
 
         if not items:
             return []
-        st = _Stages(self.device)
-        B = len(items)
-        d = self.decode_inputs(items)
-        max_out = d["max_out"]
-        st.mark("d_parse")
-        mesh = self._get_mesh()
+        dev = self.device
+        with _stage("fse.d_parse", dev):
+            B = len(items)
+            d = self.decode_inputs(items)
+            max_out = d["max_out"]
+            mesh = self._get_mesh()
         if mesh is not None:
             from ..parallel.dp import sharded_decode
 
-            padded = _pad_batch([d[k] for k in ("streams", "csize", "n_out", "norm",
-                                                "tlog")], mesh.devices.size)
-            out, err = sharded_decode(mesh, max_out)(*padded)
-            st.mark("d_decode", sync=True)
+            with _stage("fse.d_decode", dev, sync=True):
+                padded = _pad_batch([d[k] for k in ("streams", "csize", "n_out", "norm",
+                                                    "tlog")], mesh.devices.size)
+                out, err = sharded_decode(mesh, max_out)(*padded)
         else:
-            streams, csize, nout, norms, tlogs = (
-                self._tensor(d[k]) for k in ("streams", "csize", "n_out", "norm", "tlog"))
-            st.mark("d_h2d", sync=True)
-            dtables = fse_tables.build_dtables(norms, tlogs)
-            st.mark("d_tables", sync=True)
-            out, err = fse_kernels.fse_decode_batch(streams, csize, nout, tlogs,
-                                                    dtables[:3], max_out=max_out)
-            st.mark("d_decode", sync=True)
-        err = err[:B].cpu().numpy()
-        bad = np.flatnonzero(err)
-        if bad.size:
-            raise CorruptionError(f"fse block {bad[0]}: bitstream accounting failed")
-        out = out[:B].cpu().numpy()
-        st.mark("d_d2h")
-        res = [out[k, :rsize].tobytes() for k, (_payload, rsize) in enumerate(items)]
-        st.mark("d_out")
-        return res
+            with _stage("fse.d_h2d", dev, sync=True):
+                streams, csize, nout, norms, tlogs = (
+                    self._tensor(d[k]) for k in ("streams", "csize", "n_out", "norm",
+                                                 "tlog"))
+            with _stage("fse.d_tables", dev, sync=True):
+                dtables = fse_tables.build_dtables(norms, tlogs)
+            with _stage("fse.d_decode", dev, sync=True):
+                out, err = fse_kernels.fse_decode_batch(streams, csize, nout, tlogs,
+                                                        dtables[:3], max_out=max_out)
+        with _stage("fse.d_d2h", dev):
+            err = err[:B].cpu().numpy()
+            bad = np.flatnonzero(err)
+            if bad.size:
+                raise CorruptionError(f"fse block {bad[0]}: bitstream accounting failed")
+            out = out[:B].cpu().numpy()
+        with _stage("fse.d_out", dev):
+            return [out[k, :rsize].tobytes() for k, (_payload, rsize) in enumerate(items)]

@@ -7,7 +7,8 @@ per-symbol encode and the 4-stream decode chains run on the codec's
 device (ops/huf_kernels.py, the CUDA kernels), one launch a side for a
 whole batch.  X1 and X2 decode the same bytes; the X2 tables are built on
 the host per block (huf_read_dtable_x2 + pack_dtable_x2), as in the JAX
-package.
+package.  Each stage is the span "huf.<stage>" and adds its seconds to
+fse_codec.stage_seconds while that is a dict (fse_codec._stage).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from ..refimpl.hist import hist_count
 from ..refimpl.huf import huf_build_ctable, huf_read_stats, huf_write_ctable
 from ..refimpl.norm import fse_optimal_table_log
 from ..turbo.state import resolve_device
-from .fse_codec import _codec_mesh, _pad_batch, _pull_words, _round_up, _Stages
+from .fse_codec import _codec_mesh, _pad_batch, _pull_words, _round_up, _stage
 
 
 class HufTpuCodec:
@@ -103,28 +104,31 @@ class HufTpuCodec:
     def compress_blocks(self, blocks):
         from ..ops import huf_kernels
 
-        st = _Stages(self.device)
-        results, todo = self.encode_plan(blocks)
-        st.mark("c_prep")
-        if todo:
+        dev = self.device
+        with _stage("huf.c_prep", dev):
+            results, todo = self.encode_plan(blocks)
+        if not todo:
+            return results
+        with _stage("huf.c_stage", dev):
             e = self.encode_inputs(todo)
             B, S, seg_bytes = len(todo), e["max_block"], e["seg_bytes"]
             arrays = [e[k] for k in ("src", "n", "val", "nb")]
-            st.mark("c_stage")
             mesh = self._get_mesh()
-            if mesh is not None:
-                from ..parallel.dp import sharded_huf_encode
+        if mesh is not None:
+            from ..parallel.dp import sharded_huf_encode
 
+            with _stage("huf.c_encode", dev, sync=True):
                 padded = _pad_batch(arrays, mesh.devices.size)
                 words, sizes = sharded_huf_encode(mesh, S, seg_bytes)(*padded)
-            else:
+        else:
+            with _stage("huf.c_h2d", dev, sync=True):
                 ins = [self._tensor(a) for a in arrays]
-                st.mark("c_h2d", sync=True)
+            with _stage("huf.c_encode", dev, sync=True):
                 words, sizes = huf_kernels.huf_encode_4x_batch(*ins, S, seg_bytes)
-            st.mark("c_encode", sync=True)
+        with _stage("huf.c_d2h", dev):
             sizes = sizes[:B].cpu().numpy()
             words = _pull_words(words[:B], sizes)
-            st.mark("c_d2h")
+        with _stage("huf.c_frames", dev):
             for k, (i, b, header, _v, _nb) in enumerate(todo):
                 s = sizes[k]
                 if np.any(s == 0) or s[0] > 65535 or s[1] > 65535 or s[2] > 65535:
@@ -138,7 +142,6 @@ class HufTpuCodec:
                     results[i] = BlockResult.raw()
                 else:
                     results[i] = BlockResult.compressed(payload)
-            st.mark("c_frames")
         return results
 
     # -- decompression ----------------------------------------------------
@@ -200,59 +203,62 @@ class HufTpuCodec:
 
         if not items:
             return []
-        st = _Stages(self.device)
-        B = len(items)
-        # raw/rle shortcuts (cSrc==dst / 1 byte) are frame-level; here every
-        # payload is header + jumpTable + 4 streams
-        d = self.decode_inputs(items)
-        seg_cap, tlogs, weights = d["max_seg"], d["tlog"], d["weights"]
-        st.mark("d_parse")
+        dev = self.device
+        with _stage("huf.d_parse", dev):
+            B = len(items)
+            # raw/rle shortcuts (cSrc==dst / 1 byte) are frame-level; here every
+            # payload is header + jumpTable + 4 streams
+            d = self.decode_inputs(items)
+            seg_cap, tlogs, weights = d["max_seg"], d["tlog"], d["weights"]
+            mesh = self._get_mesh()
         # device: tables per block, repeated x4 for the stream axis
-        mesh = self._get_mesh()
         if self.decoder != "x2" and mesh is not None:
             from ..parallel.dp import sharded_huf_decode
 
-            # pad the block dim to the mesh; stream rows pad 4 at a time so
-            # each dummy block carries its 4 streams
-            weightsp, = _pad_batch([weights], mesh.devices.size)
-            Bp = weightsp.shape[0]
+            with _stage("huf.d_decode", dev, sync=True):
+                # pad the block dim to the mesh; stream rows pad 4 at a time so
+                # each dummy block carries its 4 streams
+                weightsp, = _pad_batch([weights], mesh.devices.size)
+                Bp = weightsp.shape[0]
 
-            def rep4(a):
-                return (np.concatenate([a, np.tile(a[:4], (Bp - B,) + (1,) * (a.ndim - 1))])
-                        if Bp > B else a)
-            out, err = sharded_huf_decode(mesh, seg_cap)(
-                *(rep4(d[k]) for k in ("streams", "csize", "n_out", "tlog")), weightsp,
-                np.resize(tlogs.reshape(B, 4)[:, 0], Bp))
-        else:
-            args = [self._tensor(d[k]) for k in ("streams", "csize", "n_out")]
-            if self.decoder == "x2":
+                def rep4(a):
+                    return (np.concatenate([a, np.tile(a[:4], (Bp - B,) + (1,) * (a.ndim - 1))])
+                            if Bp > B else a)
+                out, err = sharded_huf_decode(mesh, seg_cap)(
+                    *(rep4(d[k]) for k in ("streams", "csize", "n_out", "tlog")), weightsp,
+                    np.resize(tlogs.reshape(B, 4)[:, 0], Bp))
+        elif self.decoder == "x2":
+            with _stage("huf.d_h2d", dev, sync=True):
+                args = [self._tensor(d[k]) for k in ("streams", "csize", "n_out")]
                 tl4 = self._tensor(np.repeat(d["x2_tlog"], 4))
                 tbl4 = self._tensor(np.repeat(d["x2_tbl"], 4, axis=0))
-                st.mark("d_h2d", sync=True)
+            with _stage("huf.d_decode", dev, sync=True):
                 out, err = huf_kernels.huf_decode_4x2_batch(*args, tl4, tbl4,
                                                             max_seg=seg_cap)
-            else:
+        else:
+            with _stage("huf.d_h2d", dev, sync=True):
+                args = [self._tensor(d[k]) for k in ("streams", "csize", "n_out")]
                 tl4, w = self._tensor(tlogs), self._tensor(weights)
                 tl_blocks = self._tensor(tlogs.reshape(B, 4)[:, 0])
-                st.mark("d_h2d", sync=True)
+            with _stage("huf.d_tables", dev, sync=True):
                 byte_tbl, nb_tbl = huf_kernels.build_dtables_x1(w, tl_blocks)
                 tables = (byte_tbl.repeat_interleave(4, dim=0),
                           nb_tbl.repeat_interleave(4, dim=0))
-                st.mark("d_tables", sync=True)
+            with _stage("huf.d_decode", dev, sync=True):
                 out, err = huf_kernels.huf_decode_4x1_batch(*args, tl4, tables,
                                                             max_seg=seg_cap)
-        st.mark("d_decode", sync=True)
-        err = err[: 4 * B].cpu().numpy().reshape(B, 4)
-        bad = np.flatnonzero(err.any(axis=1))
-        if bad.size:
-            raise CorruptionError(f"huf block {bad[0]}: stream not fully consumed")
-        out = out[: 4 * B].cpu().numpy()
-        st.mark("d_d2h")
-        res = []
-        segs = d["segs"]
-        for k, (_payload, rsize) in enumerate(items):
-            seg = segs[k]
-            parts = [out[4 * k + j, : (seg if j < 3 else rsize - 3 * seg)] for j in range(4)]
-            res.append(np.concatenate(parts).tobytes())
-        st.mark("d_out")
-        return res
+        with _stage("huf.d_d2h", dev):
+            err = err[: 4 * B].cpu().numpy().reshape(B, 4)
+            bad = np.flatnonzero(err.any(axis=1))
+            if bad.size:
+                raise CorruptionError(f"huf block {bad[0]}: stream not fully consumed")
+            out = out[: 4 * B].cpu().numpy()
+        with _stage("huf.d_out", dev):
+            res = []
+            segs = d["segs"]
+            for k, (_payload, rsize) in enumerate(items):
+                seg = segs[k]
+                parts = [out[4 * k + j, : (seg if j < 3 else rsize - 3 * seg)]
+                         for j in range(4)]
+                res.append(np.concatenate(parts).tobytes())
+            return res

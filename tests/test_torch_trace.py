@@ -1,6 +1,8 @@
 """The port's program spans (utils/trace.py): free when no profiler runs,
 and under torch.profiler every entry point's stages nested in its entry's
-span, with the names the benchmark's span metrics read."""
+span, with the names the benchmark's span metrics read.  The entries: the
+TurboRANS entry points, the resident pipeline, and the frame layer
+(io/frame.py) over the FSE and Huff0 device codecs (models/)."""
 import ast
 import json
 from pathlib import Path
@@ -10,6 +12,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from finitestateentropy_tpu_torch.io.frame import compress_bytes, decompress_bytes
+from finitestateentropy_tpu_torch.models import fse_codec, get_batch_codec
 from finitestateentropy_tpu_torch.turbo import api
 from finitestateentropy_tpu_torch.turbo.device_api import (
     rans_compress_resident, rans_decompress_resident)
@@ -32,10 +36,19 @@ RESIDENT_SPANS = {"resident.compress": {"resident.slice", "resident.hist",
                   "resident.decompress": {"resident.d_parse", "resident.d_h2d",
                                           "resident.d_stage", "resident.d_kernel",
                                           "resident.d_err", "resident.d_join"}}
+FRAME_C = {"frame.c_blocks", "frame.c_write", "frame.c_checksum"}
+FRAME_D = {"frame.d_read", "frame.d_blocks", "frame.d_write", "frame.d_checksum"}
+CODEC_C = ("c_prep", "c_stage", "c_h2d", "c_encode", "c_d2h", "c_frames")
+CODEC_D = ("d_parse", "d_h2d", "d_tables", "d_decode", "d_d2h", "d_out")
+COMPAT_SPANS = {codec: {"frame.compress": FRAME_C | {f"{codec}.{s}" for s in CODEC_C + extra},
+                        "frame.decompress": FRAME_D | {f"{codec}.{s}" for s in CODEC_D}}
+                for codec, extra in (("fse", ("c_tables",)), ("huf", ()))}
 # the benchmark's metrics that read program spans
 SPAN_METRICS = ("resident.host_ms_per_mib", "resident.decompress_host_ms_per_mib",
                 "resident.decompress_h2d_ms_per_mib", "api.prep_byte_ms_per_mib",
-                "api.prep_wires_ms_per_mib")
+                "api.prep_wires_ms_per_mib", "compat.compress_checksum_ms_per_mib",
+                "compat.compress_host_ms_per_mib", "compat.decompress_checksum_ms_per_mib",
+                "compat.decompress_host_ms_per_mib")
 
 
 def _data() -> bytes:
@@ -58,7 +71,21 @@ def _resident(data: bytes):
     return blob
 
 
-ENTRIES = {"host": (_host, HOST_SPANS), "resident": (_resident, RESIDENT_SPANS)}
+def _compat(codec: str):
+    """A frame round trip through a device codec's plain versions, in 1 KiB
+    blocks (the plain chains step a symbol at a time): coded, RLE and raw
+    blocks."""
+    def run(data: bytes):
+        comp, decomp = get_batch_codec(codec, block_size=1024, device="cpu")
+        frame = compress_bytes(data, codec, 0, comp)
+        assert decompress_bytes(frame, decomp) == data
+        return frame
+    return run
+
+
+ENTRIES = {"host": (_host, HOST_SPANS), "resident": (_resident, RESIDENT_SPANS),
+           "fse": (_compat("fse"), COMPAT_SPANS["fse"]),
+           "huf": (_compat("huf"), COMPAT_SPANS["huf"])}
 
 
 def _traced(run, tmp_path):
@@ -130,11 +157,45 @@ def test_stage_spans_without_a_sync(traced, monkeypatch, tmp_path):
     assert [n for n, _s, _e in spans] == ["turbo.c_kernel"]
 
 
+@pytest.mark.parametrize("traced", [False, True])
+def test_codec_stage_spans_without_a_sync(traced, monkeypatch, tmp_path):
+    """The compat codecs' _stage with stage_seconds None syncs nothing, even
+    for a device stage, and under a profiler is the span it names."""
+    def no_sync(*_a):
+        raise AssertionError("torch.cuda.synchronize with stage_seconds None")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+    monkeypatch.setattr(fse_codec, "stage_seconds", None)
+
+    def run(_data):
+        with fse_codec._stage("fse.c_encode", torch.device("cuda"), sync=True):
+            pass
+
+    if not traced:
+        run(None)
+        return
+    _out, spans = _traced(run, tmp_path)
+    assert [n for n, _s, _e in spans] == ["fse.c_encode"]
+
+
+@pytest.mark.parametrize("codec", sorted(COMPAT_SPANS))
+def test_codec_stage_seconds_keep_their_names(codec, monkeypatch):
+    """stage_seconds, on, times every stage of a round trip under its bare
+    name (the Huff0 codec's too, into the FSE module's dict)."""
+    monkeypatch.setattr(fse_codec, "stage_seconds", {})
+    ENTRIES[codec][0](_data())
+    spans = set().union(*COMPAT_SPANS[codec].values())
+    assert sorted(fse_codec.stage_seconds) == sorted(
+        n.split(".", 1)[1] for n in spans if n.startswith(codec + "."))
+    assert min(fse_codec.stage_seconds.values()) >= 0
+
+
 @pytest.mark.parametrize("metric", SPAN_METRICS)
 def test_span_metrics_read_emitted_names(metric, emitted):
     """A metric's span names are among those the program emits: a rename
     on either side fails here, not silently in the benchmark."""
     tree = ast.parse((REPO / "h100_bench" / "metrics" / f"{metric}.py").read_text())
     names = {c.value for c in ast.walk(tree) if isinstance(c, ast.Constant)
-             and isinstance(c.value, str) and c.value.startswith(("turbo.", "resident."))}
+             and isinstance(c.value, str)
+             and c.value.startswith(("turbo.", "resident.", "frame.", "fse."))}
     assert names and names <= emitted, names - emitted
