@@ -221,7 +221,7 @@ def decompress_bytes(frame: bytes, decompressor: BatchDecompressor | None = None
 
         with _span("frame.d_checksum"):
             saved = frame[pos + 2] + (frame[pos + 1] << 8) + ((frame[pos] & 0x3F) << 16)
-            calc = (xxh32(bytes(out), FSE_CHECKSUM_SEED) >> 5) & ((1 << 22) - 1)
+            calc = (xxh32(out, FSE_CHECKSUM_SEED) >> 5) & ((1 << 22) - 1)
             if saved != calc:
                 raise CorruptionError("frame checksum mismatch")
         return bytes(out)

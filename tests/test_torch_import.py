@@ -20,6 +20,8 @@ import finitestateentropy_tpu_torch as pkg
 names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
 for name in sorted(names):
     importlib.import_module(name)
+# importing every module built nothing: XXH32's library waits for a first hash
+assert not sys.modules[pkg.__name__ + ".utils.xxhash32"]._tried
 # the multi-device layer, the v0 codec, the resident pipeline and its
 # device ops, the CLI and its host modules, the compat codecs, their ops,
 # frame layer, twins and sharded steps are among them
@@ -100,6 +102,27 @@ print("ok")
 def test_port_imports_and_roundtrips_without_jax():
     r = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+_XXH_CHILD = r"""
+import sys
+sys.modules["torch"] = None                    # any `import torch` now fails
+import finitestateentropy_tpu_torch.utils.xxhash32 as xxh
+assert xxh._lib is None and not xxh._tried     # the import built nothing
+assert xxh.xxh32(b"") == 0x02CC5D05            # nor does the hash need torch
+assert sum(xxh.counts.values()) == 1
+print("ok")
+"""
+
+
+def test_xxhash32_imports_no_torch_and_builds_nothing():
+    """utils/xxhash32.py, the frame checksum of the host twins' path, loads
+    without torch and builds its native library at the first hash, never at
+    import."""
+    r = subprocess.run([sys.executable, "-c", _XXH_CHILD], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("ok")
 
