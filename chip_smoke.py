@@ -1130,7 +1130,7 @@ def main() -> int:
             _n, _f, batches = api.plan_encode16(p.data, p.group, st)
             packed = entry == "rans_encode2_flat"
             for (n_pad, big, tlog), items in batches.items():
-                fc, mg, srcw = api.stage_encode16_batch(items, n_pad, big)
+                fc, mg, srcw = api.STAGE_BATCH["u16x" if big else "u16"](items, n_pad)
                 ins = to_tensors(DEV, fc_tables=fc, magic_tables=mg, src_words=srcw)
                 t2, hcap = n_pad // 2048, api._round8(n_pad // 128 + 16)
                 mode = "u16x" if big else "u16"
@@ -1173,11 +1173,11 @@ def main() -> int:
                              quad=wire == "quad")
                 staged.append((arrays, tlog, kind, wire, flags))
         else:
-            groups = api.parse_groups16(blob)
-            for (n_pad, tlog, tots, big), idxs in api.plan_decode16(groups)[1].items():
-                arrays = api.stage_decode16_batch(groups, idxs, n_pad, tlog, tots, big)
-                staged.append((arrays, tlog, 2 if tots else 0,
-                               "u16x" if big else "u16", dict(u16=True, u16x=big)))
+            groups = api.parse_groups(blob, api.parse_rans16_group)
+            for (wire, n_pad, tlog, kind), idxs in api.plan_decode16(groups)[1].items():
+                arrays = api.stage_decode_batch(groups, idxs, n_pad, tlog, wire, kind)
+                staged.append((arrays, tlog, kind, wire,
+                               dict(u16=True, u16x=wire == "u16x")))
         out = []
         for (cs, tbl, init, hws, tots, t4, hrows), tlog, kind, mode, flags in staged:
             ins = to_tensors(DEV, csize_hw=cs, tables=tbl, init_states=init,
@@ -1373,7 +1373,7 @@ def main() -> int:
     # the U16 round trip over the mesh: the flat encode on 8-chunk tables
     _n, _f, b16 = api.plan_encode16(u16_syms, GROUP16, True)
     ((n16, big16, tlog16), items16), = b16.items()
-    fc16, mg16, src16 = api.stage_encode16_batch(items16, n16, big16)
+    fc16, mg16, src16 = api.STAGE_BATCH["u16x" if big16 else "u16"](items16, n16)
     dtbl16 = np.stack([pack_rans16_dtable(it[2][0], tlog16) for it in items16])
     t2, hcap16 = n16 // 2048, api._round8(n16 // 128 + 16)
     rk.reset_launches()
@@ -1384,7 +1384,8 @@ def main() -> int:
     ok, total = int(ok), int(total)
     e2e_s["mesh_u16_pareto/0"] = [time.perf_counter() - t0]
     launches["mesh_u16_pareto"] = {k: v for k, v in rk.launches.items() if v}
-    single16 = sum(g[1] for g in api.parse_groups16(blobs[("u16_pareto_64MiB", 0)]))
+    single16 = sum(g[1] for g in api.parse_groups(blobs[("u16_pareto_64MiB", 0)],
+                                                  api.parse_rans16_group))
     require(ok == 1 and total == single16,
             f"mesh u16 round trip: ok {ok}, {total} halfwords, single-device {single16}")
     u16_speed = Piece("turbo16", u16_syms, GROUP16, dict(steptots=True))
@@ -1414,7 +1415,8 @@ def main() -> int:
             "u16codec_turbo: the round trip")
     for blob, path in zip(u16c_blobs, ("u16_pareto_64MiB", "u16x_pareto_16MiB")):
         ref = blobs[(path, 0)]
-        require(ref.startswith(blob) and len(api.parse_groups16(blob)) == U16CODEC_GROUPS,
+        require(ref.startswith(blob)
+                and len(api.parse_groups(blob, api.parse_rans16_group)) == U16CODEC_GROUPS,
                 f"u16codec_turbo: the frames differ from {path}'s first groups")
     codec_pieces = [Piece("turbo16", s, GROUP16, dict(steptots=True)) for s in codec_streams]
     path_batches["u16codec_turbo"] = lambda: [

@@ -18,6 +18,7 @@ import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
+from functools import partial
 
 import numpy as np
 import torch
@@ -223,28 +224,37 @@ def split_groups(src: np.ndarray, group_size: int) -> list[np.ndarray]:
     return [src[st : st + ln] for st, ln in group_spans(len(src), group_size)]
 
 
-_SYM_DTYPE = {"byte": np.uint8, "pair": np.uint16, "quad": np.uint32}
+# per wire: (symbol dtype, encode-table chunks, table packer); the U16
+# codec's wires are u16 (symbols <= 1023) and u16x (the wide tables)
+_ENC_WIRE = {"byte": (np.uint8, 2, pack_rans_ctables),
+             "pair": (np.uint16, 2, pack_rans_ctables),
+             "quad": (np.uint32, 2, pack_rans_ctables),
+             "u16": (np.uint16, 8, pack_rans16_ctables),
+             "u16x": (np.uint16, 32, pack_rans16x_ctables)}
 
 
 def _stage_wire_batch(wire: str, items, n_pad: int):
-    """(fc, magic, src_words) numpy inputs of rans_encode2 for a batch of
-    (gi, chunk, prep) items of one wire and padded size.  Each group pads
-    with its most frequent symbol (byte) or id (pair, quad): that keeps
-    the final states, hence the frame, equal to the twin's."""
+    """(fc, magic, src_words) numpy inputs of the encode entries for a
+    batch of (gi, chunk, prep) items of one wire and padded size (in the
+    wire's symbols).  prep is the prep_group tuple (byte), the
+    prep_pair_group / prep_quad_group dict (pair, quad: the group's ids
+    are coded) or the _prep16_group tuple (u16, u16x).  Each group pads
+    with its most frequent symbol or id: that keeps the final states,
+    hence the frame, equal to the twin's."""
     G = len(items)
-    dtype = _SYM_DTYPE[wire]
+    dtype, nch, pack = _ENC_WIRE[wire]
     rows = n_pad * np.dtype(dtype).itemsize // 512   # 128 words of 4 bytes
-    fc = np.zeros((G, 2, 128), np.int32)
-    mg = np.zeros((G, 2, 128), np.int32)
+    fc = np.zeros((G, nch, 128), np.int32)
+    mg = np.zeros((G, nch, 128), np.int32)
     srcw = np.zeros((G, rows, 128), np.int32)
 
     def stage(j):
         _gi, ch, prep = items[j]
-        if wire == "byte":
-            norm, syms, fill = prep[0], ch, prep[3]
-        else:
+        if wire in ("pair", "quad"):
             norm, syms, fill = prep["norm"], prep["ids"], prep["mfi"]
-        fc[j], mg[j] = pack_rans_ctables(norm)  # layout is tlog-agnostic
+        else:
+            norm, syms, fill = prep[0], ch, prep[3]
+        fc[j], mg[j] = pack(norm)  # layout is tlog-agnostic
         pad = np.full(n_pad, fill, dtype)
         pad[: len(syms)] = syms
         srcw[j] = pad.view("<u4").view(np.int32).reshape(rows, 128)
@@ -253,26 +263,13 @@ def _stage_wire_batch(wire: str, items, n_pad: int):
     return fc, mg, srcw
 
 
-def stage_encode_batch(items, n_pad: int):
-    """Byte-wire encode inputs: items are (gi, chunk, _prep_group(chunk)),
-    n_pad the padded byte count (4 bytes per source word)."""
-    return _stage_wire_batch("byte", items, n_pad)
+# a wire's encode inputs: STAGE_BATCH[wire](items, n_pad)
+STAGE_BATCH = {w: partial(_stage_wire_batch, w) for w in _ENC_WIRE}
 
 
-def stage_pair_batch(items, n_pad16: int):
-    """Pair-wire encode inputs: items are (gi, chunk, prep_pair_group(chunk)),
-    n_pad16 the padded pair count (2 u16 ids per source word)."""
-    return _stage_wire_batch("pair", items, n_pad16)
-
-
-def stage_quad_batch(items, id_pad: int):
-    """Quad-wire encode inputs: items are (gi, chunk, prep_quad_group(chunk)),
-    id_pad the padded quad count (1 id per source word)."""
-    return _stage_wire_batch("quad", items, id_pad)
-
-
-STAGE_BATCH = {"byte": stage_encode_batch, "pair": stage_pair_batch,
-               "quad": stage_quad_batch}
+def _raw_frame(n: int, data: bytes) -> bytes:
+    """A group stored as it is (FLAG_RAW)."""
+    return _HDR.pack(RANS_MAGIC, n, 0, 0, FLAG_RAW, 0) + data
 
 
 def plan_encode(data: bytes, group_size: int, table_log: int, pair: int = -1,
@@ -313,8 +310,7 @@ def plan_encode(data: bytes, group_size: int, table_log: int, pair: int = -1,
                 frames[gi] = _HDR.pack(RANS_MAGIC, len(ch), 0, 0, FLAG_RLE, 0) \
                     + bytes([ch[0]]) + b"\0" * 3
             else:                    # near-uniform: straight to raw
-                frames[gi] = _HDR.pack(RANS_MAGIC, len(ch), 0, 0, FLAG_RAW, 0) \
-                    + ch.tobytes()
+                frames[gi] = _raw_frame(len(ch), ch.tobytes())
             continue
         tlog = table_log if wire == "byte" else prep["tlog"]
         batches.setdefault((wire, _wire_pad(wire, len(ch)), tlog), []).append(
@@ -322,15 +318,17 @@ def plan_encode(data: bytes, group_size: int, table_log: int, pair: int = -1,
     return len(chunks), frames, batches
 
 
-def _encode_frame(ch, tlog: int, flags: int, nc_len: int, head: bytes,
-                  csize: int, words: np.ndarray, fin: np.ndarray,
+def _encode_frame(n: int, raw, tlog: int, flags: int, nc_len: int,
+                  head: bytes, csize: int, words: np.ndarray, fin: np.ndarray,
                   stots: np.ndarray, sect_kind: str | None) -> bytes:
-    """One group's frame from the encode kernel's outputs: head is what
-    lies between the header and the init states (the padded NCount; pair
-    and quad add their LUT and escapes); sect_kind the section after the
-    init states: "rows" (FLAG_STEPTOTS, ROWS4-packed when smaller),
-    "totals" (FLAG_TOTALS) or None (ratio mode, v1).  Raw when the frame
-    would not be smaller than the group."""
+    """One byte-wire group's frame from the encode kernel's outputs, for
+    the host entries and the resident pipeline alike: n the group's length
+    and raw() its bytes, called only when the frame falls back to raw;
+    head is what lies between the header and the init states (the padded
+    NCount; pair and quad add their LUT and escapes); sect_kind the
+    section after the init states: "rows" (FLAG_STEPTOTS, ROWS4-packed
+    when smaller), "totals" (FLAG_TOTALS) or None (ratio mode, v1).  Raw
+    when the frame would not be smaller than the group."""
     # wire payload bytes ARE the packed words little-endian
     payload = words.tobytes()[: 2 * csize]
     if sect_kind == "rows":
@@ -345,14 +343,19 @@ def _encode_frame(ch, tlog: int, flags: int, nc_len: int, head: bytes,
         fl = flags | FLAG_TOTALS
     else:
         sect, fl = b"", flags
-    blob = (_HDR.pack(RANS_MAGIC, len(ch), csize, tlog, fl, nc_len)
+    blob = (_HDR.pack(RANS_MAGIC, n, csize, tlog, fl, nc_len)
             + head
             + fin.reshape(-1).view(np.uint32).astype("<u4").tobytes()
             + sect
             + payload)
-    if len(blob) >= len(ch) + _HDR.size:
-        blob = _HDR.pack(RANS_MAGIC, len(ch), 0, 0, FLAG_RAW, 0) + ch.tobytes()
+    if len(blob) >= n + _HDR.size:
+        blob = _raw_frame(n, raw())
     return blob
+
+
+def _sect_kind(steptots: bool, totals_only: bool) -> str | None:
+    """The section _encode_frame writes after the init states."""
+    return ("totals" if totals_only else "rows") if steptots else None
 
 
 def _frame_head(wire: str, prep) -> tuple[int, int, bytes]:
@@ -438,12 +441,12 @@ def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
                                            pair, quad)
         check_byte_args(table_log, group_size)
         if len(data) == 0:
-            return _HDR.pack(RANS_MAGIC, 0, 0, 0, FLAG_RAW, 0)
+            return _raw_frame(0, b"")
         with _stage("c_prep", dev):
             n_groups, results, batches = plan_encode(
                 data, group_size, table_log, pair, quad, pair_table_log,
                 quad_table_log)
-        sect_kind = ("totals" if totals_only else "rows") if steptots else None
+        sect_kind = _sect_kind(steptots, totals_only)
 
         for (wire, n_pad, tlog), items in batches.items():
             G = len(items)
@@ -477,9 +480,9 @@ def turbo_compress_device(data: bytes, group_size: int = DEFAULT_GROUP,
                          else [None] * G)
             with _stage("c_frames", dev):
                 for j, (gi, ch, prep) in enumerate(items):
-                    results[gi] = _encode_frame(ch, tlog, *_frame_head(wire, prep),
-                                                int(csize[j]), stream[j], fin[j],
-                                                stots[j], sect_kind)
+                    results[gi] = _encode_frame(
+                        len(ch), ch.tobytes, tlog, *_frame_head(wire, prep),
+                        int(csize[j]), stream[j], fin[j], stots[j], sect_kind)
         return b"".join(results[gi] for gi in range(n_groups))
 
 
@@ -552,15 +555,18 @@ def _window_dispatch(windows: int, t_count: int, hrows: int, tlog: int,
 
 _DTABLE = {"byte": lambda g, tlog: pack_rans_dtable(g[4], tlog),
            "pair": lambda g, tlog: pack_pair_dtable(g[4], g[9], tlog),
-           "quad": lambda g, tlog: pack_quad_dtable(g[4], g[9], tlog)}
+           "quad": lambda g, tlog: pack_quad_dtable(g[4], g[9], tlog),
+           "u16": lambda g, tlog: pack_rans16_dtable(g[4], tlog),
+           "u16x": lambda g, tlog: pack_rans16x_dtable(g[4], tlog)}
 
 
 def stage_decode_batch(groups, idxs, n_pad: int, tlog: int,
                        wire: str = "byte", kind: int = 2):
     """numpy inputs of the decode entries for a batch of parsed groups of
-    one wire, padded size (in the wire's symbols), tableLog and section
-    kind (plan_decode): (csize_hw, tables, init_states, streams, steptots,
-    t4, hrows), steptots [G,T,8] (kind 2), [G,T] (kind 1) or None (v1)."""
+    one wire (byte, pair, quad; u16, u16x for the U16 codec), padded size
+    (in the wire's symbols), tableLog and section kind (plan_decode,
+    plan_decode16): (csize_hw, tables, init_states, streams, steptots, t4,
+    hrows), steptots [G,T,8] (kind 2), [G,T] (kind 1) or None (v1)."""
     G = len(idxs)
     t4 = _wire_t4(wire, n_pad)
     hrows = _round8(max((groups[i][1] + 127) // 128 for i in idxs) + 16)
@@ -589,14 +595,15 @@ def stage_decode_batch(groups, idxs, n_pad: int, tlog: int,
     return cs, tbl, init, hws, tots, t4, hrows
 
 
-def parse_groups(blob: bytes) -> list:
-    """Every group of a TurboRANS stream, parsed (parse_rans_group) in
-    place: each group's parser reads a view of blob at the group's offset,
-    so a payload (a raw group's bytes too) is a memoryview of blob,
-    and no group copies the rest of the stream."""
+def parse_groups(blob: bytes, parse=parse_rans_group) -> list:
+    """Every group of a TurboRANS stream, parsed in place by parse
+    (parse_rans_group; parse_rans16_group for a U16 stream): each group's
+    parser reads a view of blob at the group's offset, so a payload (a raw
+    group's bytes too) is a memoryview of blob, and no group copies the
+    rest of the stream."""
     view, groups, pos = memoryview(blob), [], 0
     while pos < len(view):
-        g, used = parse_rans_group(view[pos:])
+        g, used = parse(view[pos:])
         groups.append(g)
         pos += used
     return groups
@@ -636,15 +643,17 @@ def _group_bytes(wire: str, g, words: np.ndarray) -> bytes:
 
 def _decode_batch(wire: str, args, steptots, t4: int, hrows: int, tlog: int,
                   windows: int, interpret: bool = False):
-    """One decode batch on one device: v1 groups (steptots None) through
-    rans_decode, the others through the entry _window_dispatch picks.
-    args: (csize_hw, tables, init_states, streams) tensors."""
-    is_pair = wire == "pair"
+    """One decode batch on one device, for every wire (byte, pair, quad,
+    u16, u16x) and every entry point: v1 groups (steptots None) through
+    rans_decode, the others through the entry _window_dispatch picks
+    (windows=1: rans_decode_v2).  args: (csize_hw, tables, init_states,
+    streams) tensors."""
+    modes = dict(u16=wire in ("pair", "u16", "u16x"), u16x=wire == "u16x",
+                 pair=wire == "pair")
     if steptots is None:        # v1: rank and cursor chain in the kernel
-        return rans_decode(*args, t4, hrows, interpret, u16=is_pair,
-                           tlog=tlog, pair=is_pair)
+        return rans_decode(*args, t4, hrows, interpret, tlog=tlog, **modes)
     G = args[0].shape[0]
-    modes = dict(u16=is_pair, pair=is_pair, quad=wire == "quad")
+    modes["quad"] = wire == "quad"
     w_nway, w_s = _window_dispatch(windows, t4, hrows, tlog, G,
                                    steptots.dim() == 2, **modes)
     if w_nway:
@@ -736,7 +745,7 @@ def turbo_decompress_device(blob: bytes, interpret: bool = False,
 
 
 def _prep16_group(chunk: np.ndarray):
-    """Host stats for one U16 group: (norm, ncount, mfs, tlog), or None for
+    """Host stats for one U16 group: (norm, tlog, ncount, mfs), or None for
     a group the numpy twin writes (empty, RLE, or a symbol above 4095,
     which the twin refuses).  Alphabets above 1023 need tableLog 12-13
     (fseU16.c:43-48); small groups shrink via FSE_optimalTableLog."""
@@ -754,7 +763,7 @@ def _prep16_group(chunk: np.ndarray):
     norm, tlog = fse_normalize_count(tlog_opt, count[: max_sv + 1], n, max_sv,
                                      max_table_log=13)
     ncount = fse_write_ncount(norm, max_sv, tlog)
-    return np.asarray(norm), ncount, int(count.argmax()), tlog
+    return np.asarray(norm), tlog, ncount, int(count.argmax())
 
 
 def plan_encode16(symbols: np.ndarray, group_syms: int, steptots: bool):
@@ -772,31 +781,9 @@ def plan_encode16(symbols: np.ndarray, group_syms: int, steptots: bool):
             frames[gi] = rans16_compress(chunk, steptots)
             continue
         big = int(chunk.max()) > 1023
-        batches.setdefault((_pad_n16(len(chunk)), big, prep[3]), []).append(
+        batches.setdefault((_pad_n16(len(chunk)), big, prep[1]), []).append(
             (gi, chunk, prep))
     return len(chunks), frames, batches
-
-
-def stage_encode16_batch(items, n_pad: int, big: bool):
-    """(fc, magic, src_words) numpy inputs of rans_encode for a batch of
-    (gi, chunk, _prep16_group(chunk)) items: 8-chunk tables, or 32-chunk
-    ones when big.  Each group pads with its most frequent symbol."""
-    G = len(items)
-    t2 = n_pad // RANS16_STEP_SYMS
-    nch = 32 if big else 8
-    fc = np.zeros((G, nch, 128), np.int32)
-    mg = np.zeros((G, nch, 128), np.int32)
-    srcw = np.zeros((G, t2 * 8, 128), np.int32)
-
-    def stage(j):
-        _gi, chunk, (norm, _ncount, mfs, _tlog) = items[j]
-        fc[j], mg[j] = (pack_rans16x_ctables if big else pack_rans16_ctables)(norm)
-        pad = np.full(n_pad, mfs, np.uint16)
-        pad[: len(chunk)] = chunk
-        srcw[j] = pad.view("<u4").view(np.int32).reshape(t2 * 8, 128)
-
-    _map(stage, range(G))
-    return fc, mg, srcw
 
 
 def turbo16_compress_device(symbols: np.ndarray, group_syms: int = 1 << 19,
@@ -816,7 +803,7 @@ def turbo16_compress_device(symbols: np.ndarray, group_syms: int = 1 << 19,
         G = len(items)
         debuglog(3, "turbo16 encode: batch of %d groups, n_pad=%d, big=%s",
                  G, n_pad, big)
-        fc, mg, srcw = stage_encode16_batch(items, n_pad, big)
+        fc, mg, srcw = STAGE_BATCH["u16x" if big else "u16"](items, n_pad)
         ins = to_tensors(dev, fc_tables=fc, magic_tables=mg, src_words=srcw)
         stream, fin, csize, stots = rans_encode(
             ins["fc_tables"], ins["magic_tables"], ins["src_words"],
@@ -828,7 +815,7 @@ def turbo16_compress_device(symbols: np.ndarray, group_syms: int = 1 << 19,
         fin = fin.cpu().numpy()
         if steptots:
             stots = stots.cpu().numpy().astype(np.uint8)
-        for j, (gi, chunk, (_norm, ncount, _mfs, _tl)) in enumerate(items):
+        for j, (gi, chunk, (_norm, _tl, ncount, _mfs)) in enumerate(items):
             n = len(chunk)
             cs = int(csize[j])
             sect, fl = ((stots[j].reshape(-1).tobytes(), FL16_STEPTOTS)
@@ -844,22 +831,13 @@ def turbo16_compress_device(symbols: np.ndarray, group_syms: int = 1 << 19,
     return b"".join(results[gi] for gi in range(n_groups))
 
 
-def parse_groups16(blob: bytes) -> list:
-    """Every group of a TurboRANS-U16 stream, parsed (parse_rans16_group)
-    in place, as parse_groups: payloads are memoryviews of blob."""
-    view, groups, pos = memoryview(blob), [], 0
-    while pos < len(view):
-        g, used = parse_rans16_group(view[pos:])
-        groups.append(g)
-        pos += used
-    return groups
-
-
 def plan_decode16(groups):
-    """({i: u16 array} of the raw and RLE groups, {(n_pad, tlog, have_tots,
-    big): [i]}: the decode entries' batches)."""
+    """({i: u16 array} of the raw and RLE groups, {(wire, n_pad, tlog,
+    kind): [i]}: the decode entries' batches, keyed as plan_decode's).
+    wire is u16, or u16x when the group has symbols above 1023 (the wide
+    tables); kind 0 (v1, ratio mode) or 2 (FLAG_STEPTOTS row counts)."""
     pieces: dict[int, np.ndarray] = {}
-    batches: dict[tuple[int, int, bool, bool], list[int]] = {}
+    batches: dict[tuple[str, int, int, int], list[int]] = {}
     for i, g in enumerate(groups):
         n, _cs, tlog, flags, _norm, max_sv, _init, payload, stots = g
         if flags & 1:
@@ -867,38 +845,10 @@ def plan_decode16(groups):
         elif flags & 2:
             pieces[i] = np.full(n, np.frombuffer(payload, "<u2")[0], np.uint16)
         else:
-            batches.setdefault((_pad_n16(n), tlog, stots is not None,
-                                max_sv > 1023), []).append(i)
+            wire = "u16x" if max_sv > 1023 else "u16"
+            kind = 0 if stots is None else stots.ndim
+            batches.setdefault((wire, _pad_n16(n), tlog, kind), []).append(i)
     return pieces, batches
-
-
-def stage_decode16_batch(groups, idxs, n_pad: int, tlog: int,
-                         have_tots: bool, big: bool):
-    """numpy inputs of the decode entries for a batch of parsed U16 groups:
-    (csize_hw, tables, init_states, streams, steptots [G,T,8] or None, t2,
-    hrows)."""
-    G = len(idxs)
-    T = n_pad // TURBO_LANES
-    hrows = _round8(max((groups[i][1] + 127) // 128 for i in idxs) + 16)
-    srows = stream_word_rows(hrows)
-    tbl = np.zeros((G, tch_of("u16x" if big else "u16", tlog), 128), np.int32)
-    init = np.zeros((G, 8, 128), np.int32)
-    hws = np.zeros((G, srows, 128), np.int32)
-    cs = np.zeros(G, np.int32)
-    tots = np.zeros((G, T, 8), np.int32) if have_tots else None
-
-    def fill(j_i):
-        j, i = j_i
-        _n, csize_hw, _tl, _fl, norm, _msv, ini, payload, stots = groups[i]
-        tbl[j] = (pack_rans16x_dtable if big else pack_rans16_dtable)(norm, tlog)
-        init[j] = ini.view(np.int32).reshape(8, 128)
-        hws[j] = pack_stream_words(payload, srows)
-        cs[j] = csize_hw
-        if have_tots:
-            tots[j] = stots
-
-    _map(fill, list(enumerate(idxs)))
-    return cs, tbl, init, hws, tots, n_pad // RANS16_STEP_SYMS, hrows
 
 
 def turbo16_decompress_device(blob: bytes, interpret: bool = False,
@@ -909,33 +859,18 @@ def turbo16_decompress_device(blob: bytes, interpret: bool = False,
     ValueError on a corrupt group.  interpret, device: as
     turbo_compress_device."""
     dev = resolve_device(device)
-    groups = parse_groups16(blob)
+    groups = parse_groups(blob, parse_rans16_group)
     pieces, batches = plan_decode16(groups)
-    for (n_pad, tlog, have_tots, big), idxs in batches.items():
-        G = len(idxs)
-        debuglog(3, "turbo16 decode: batch of %d groups, n_pad=%d, v2=%s, "
-                 "big=%s", G, n_pad, have_tots, big)
-        cs, tbl, init, hws, tots, t2, hrows = stage_decode16_batch(
-            groups, idxs, n_pad, tlog, have_tots, big)
+    for (wire, n_pad, tlog, kind), idxs in batches.items():
+        debuglog(3, "turbo16 decode: %s batch of %d groups, n_pad=%d, "
+                 "sect_kind=%d", wire, len(idxs), n_pad, kind)
+        cs, tbl, init, hws, tots, t4, hrows = stage_decode_batch(
+            groups, idxs, n_pad, tlog, wire, kind)
         ins = to_tensors(dev, csize_hw=cs, tables=tbl, init_states=init,
                          streams=hws)
-        common = (ins["csize_hw"], ins["tables"], ins["init_states"],
-                  ins["streams"])
-        if have_tots:
-            steptots = to_tensors(dev, steptots=tots)["steptots"]
-            w_nway, w_s = _window_dispatch(windows, t2, hrows, tlog, G,
-                                           False, True, big)
-            if w_nway:
-                outw, err = rans_decode_w(*common, steptots, t2, hrows,
-                                          w_nway, tlog, w_s, interpret,
-                                          u16=True, u16x=big)
-            else:
-                outw, err = rans_decode_v2(*common, steptots, t2, hrows,
-                                           interpret, tlog, u16=True,
-                                           u16x=big)
-        else:
-            outw, err = rans_decode(*common, t2, hrows, interpret, u16=True,
-                                    tlog=tlog, u16x=big)
+        steptots = to_tensors(dev, steptots=tots)["steptots"] if kind else None
+        outw, err = _decode_batch(wire, tuple(ins.values()), steptots, t4,
+                                  hrows, tlog, windows, interpret)
         err = err.cpu().numpy()
         if err.any():
             raise ValueError(

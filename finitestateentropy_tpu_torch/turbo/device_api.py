@@ -9,13 +9,13 @@ refimpl/norm.py, the normalizeM2 fallback included) -> the encode tables
 the rans_encode2 kernel, row-local placement.  The host then pulls only
 what the frame headers need (the normalized counts, flags, final states,
 stream sizes and step counts) and the stream words up to the batch's
-largest used row, in one transfer, and writes the frames:
+largest used row, in one transfer, and writes the frames (api's writer):
 
   compress:   _resident_compress [hist -> normalize -> tables -> pad ->
               encode] -> pull -> frames (raw groups' bytes come down too)
   decompress: the host parses the headers, pushes the payload and the
-              decode tables, one decode launch per batch; the output
-              stays on the device as a uint8 tensor
+              decode tables (api's stager), one launch per batch (api's
+              dispatch); the output stays on the device as a uint8 tensor
   round trip: rans_resident_roundtrip keeps even the compressed words in
               device memory (the decode tables are built on the device
               from the same normalized counts): only scalars sync
@@ -38,6 +38,8 @@ joined).
 """
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -49,14 +51,13 @@ from ..ops.rans_tables import pack_rans_ctables_batch, pack_rans_dtable_batch
 from ..refimpl.ncount import fse_write_ncount
 from ..utils.trace import span
 # MAX_GROUP: the JAX module's name for the group bound check_byte_args holds
-from .api import (DEFAULT_GROUP, MAX_GROUP, _hrows_cap, _round8, check_byte_args,  # noqa: F401
-                  group_spans, parse_groups, stage_decode_batch)
+from .api import (DEFAULT_GROUP, MAX_GROUP, _decode_batch, _encode_frame,  # noqa: F401
+                  _frame_head, _hrows_cap, _raw_frame, _round8, _sect_kind,
+                  check_byte_args, group_spans, mode_flags, parse_groups,
+                  stage_decode_batch)
 from .format import TURBO_STEP_SYMS, _pad_n
-from .rans import (FLAG_RAW, FLAG_RLE, FLAG_ROWS4, FLAG_STEPTOTS, FLAG_TOTALS,
-                   RANS_MAGIC, RANS_SPEED_TABLELOG, RANS_TABLELOG, _HDR,
-                   _pack_rows4)
-from .rans_kernels import (_i32, rans_decode, rans_decode_v2, rans_decode_w,
-                           rans_encode2)
+from .rans import FLAG_RAW, FLAG_RLE, RANS_MAGIC, RANS_SPEED_TABLELOG, _HDR
+from .rans_kernels import _i32, rans_decode_v2, rans_decode_w, rans_encode2
 from .state import resolve_device, to_tensors
 
 
@@ -152,9 +153,9 @@ def _resident_batches(n: int, group_size: int):
     return len(spans), batches
 
 
-def _raw_frame(x: torch.Tensor, st: int, ln: int) -> bytes:
-    return (_HDR.pack(RANS_MAGIC, ln, 0, 0, FLAG_RAW, 0)
-            + x[st:st + ln].cpu().numpy().tobytes())
+def _pull_bytes(x: torch.Tensor, st: int, ln: int) -> bytes:
+    """A group's bytes, pulled from the device (a raw frame's payload)."""
+    return x[st:st + ln].cpu().numpy().tobytes()
 
 
 def rans_compress_resident(x: torch.Tensor, group_size: int = DEFAULT_GROUP,
@@ -172,16 +173,16 @@ def rans_compress_resident(x: torch.Tensor, group_size: int = DEFAULT_GROUP,
     FLAG_TOTALS wire.  interpret=True runs the plain PyTorch versions of
     the kernels on x's device (None: False)."""
     with span("resident.compress"):
-        if table_log == 0:
-            table_log = RANS_SPEED_TABLELOG if steptots else RANS_TABLELOG
+        table_log = mode_flags(table_log, steptots, totals_only, 0, 0)[0]
         check_byte_args(table_log, group_size)
         if x.dim() != 1:
             raise ValueError(f"expected a 1-D tensor, got shape {tuple(x.shape)}")
         interpret = bool(interpret)
         n = int(x.shape[0])
         if n == 0:
-            return _HDR.pack(RANS_MAGIC, 0, 0, 0, FLAG_RAW, 0)
+            return _raw_frame(0, b"")
         x = x.to(torch.uint8)
+        sect_kind = _sect_kind(steptots, totals_only)
         n_groups, batches = _resident_batches(n, group_size)
         results: dict[int, bytes] = {}
         for n_pad, items in batches.items():
@@ -211,33 +212,19 @@ def rans_compress_resident(x: torch.Tensor, group_size: int = DEFAULT_GROUP,
                         results[gi] = (_HDR.pack(RANS_MAGIC, ln, 0, 0, FLAG_RLE, 0)
                                        + bytes([int(mfs_np[j])]) + b"\0" * 3)
                         continue
+                    raw = partial(_pull_bytes, x, st, ln)
                     if flags_np[j] == 4:   # near-uniform: straight to raw
-                        results[gi] = _raw_frame(x, st, ln)
+                        results[gi] = _raw_frame(ln, raw())
                         continue
-                    cs = int(csize_np[j])
-                    payload = stream_np[j].tobytes()[: 2 * cs]
-                    max_sv = int(np.nonzero(norm_np[j])[0].max())
-                    ncount = fse_write_ncount(norm_np[j][: max_sv + 1].tolist(),
+                    norm_j = norm_np[j]
+                    max_sv = int(np.nonzero(norm_j)[0].max())
+                    ncount = fse_write_ncount(norm_j[: max_sv + 1].tolist(),
                                               max_sv, table_log)
-                    if steptots and totals_only:
-                        sect = (stots_np[j].astype(np.uint16).sum(axis=1)
-                                .astype("<u2").tobytes())
-                        fl = FLAG_TOTALS
-                    elif steptots:
-                        packed = _pack_rows4(stots_np[j])
-                        if packed is not None:
-                            sect, fl = packed, FLAG_STEPTOTS | FLAG_ROWS4
-                        else:
-                            sect, fl = stots_np[j].reshape(-1).tobytes(), FLAG_STEPTOTS
-                    else:
-                        sect, fl = b"", 0
-                    blob = (_HDR.pack(RANS_MAGIC, ln, cs, table_log, fl, len(ncount))
-                            + ncount + b"\0" * (-len(ncount) % 4)
-                            + fin_np[j].reshape(-1).view(np.uint32).astype("<u4").tobytes()
-                            + sect + payload)
-                    if len(blob) >= ln + _HDR.size:   # incompressible
-                        blob = _raw_frame(x, st, ln)
-                    results[gi] = blob
+                    prep = (norm_j, max_sv, ncount, int(mfs_np[j]))
+                    results[gi] = _encode_frame(
+                        ln, raw, table_log, *_frame_head("byte", prep),
+                        int(csize_np[j]), stream_np[j], fin_np[j],
+                        stots_np[j] if steptots else None, sect_kind)
         return b"".join(results[gi] for gi in range(n_groups))
 
 
@@ -290,13 +277,9 @@ def rans_decompress_resident(blob: bytes, interpret: bool | None = None,
                 steptots = (to_tensors(dev, steptots=tots)["steptots"]
                             if kind else None)
             with span("resident.d_kernel"):
-                if kind:
-                    outw, err = rans_decode_v2(
-                        **ins, steptots=steptots, t4_count=t4, hrows=hrows,
-                        tlog=tlog, interpret=interpret)
-                else:
-                    outw, err = rans_decode(**ins, t4_count=t4, hrows=hrows,
-                                            tlog=tlog, interpret=interpret)
+                # windows=1: rans_decode_v2 (rans_decode for v1 groups)
+                outw, err = _decode_batch("byte", tuple(ins.values()), steptots,
+                                          t4, hrows, tlog, 1, interpret)
             with span("resident.d_err"):
                 err_np = err.cpu().numpy()
                 if err_np.any():

@@ -16,9 +16,8 @@ import torch
 
 from finitestateentropy_tpu_torch.refimpl.norm import fse_normalize_count
 from finitestateentropy_tpu_torch.turbo import rans_kernels as rk
-from finitestateentropy_tpu_torch.turbo.api import (_hrows_cap, _prep_group,
-                                                    plan_encode16,
-                                                    stage_encode16_batch)
+from finitestateentropy_tpu_torch.turbo.api import (STAGE_BATCH, _hrows_cap,
+                                                    _prep_group, plan_encode16)
 from finitestateentropy_tpu_torch.turbo.format import TURBO_STEP_SYMS, _pad_n
 from finitestateentropy_tpu_torch.turbo.rans16 import _pad_n16
 from finitestateentropy_tpu_torch.turbo.state import to_tensors
@@ -225,7 +224,7 @@ def _u16x_inputs():
     _c, _f, batches = plan_encode16(s, 1 << 18, True)
     ((n_pad, big, tlog), items), = batches.items()
     assert big and tlog == 13
-    fc, mg, srcw = stage_encode16_batch(items, n_pad, big)
+    fc, mg, srcw = STAGE_BATCH["u16x" if big else "u16"](items, n_pad)
     return fc, mg, srcw, n_pad // 2048, (n_pad // 128 + 16 + 7) // 8 * 8, tlog
 
 

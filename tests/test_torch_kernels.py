@@ -15,8 +15,7 @@ from finitestateentropy_tpu_torch.turbo.api import (STAGE_BATCH, _hrows_cap,
                                                     _prep_group, _wire_t4,
                                                     parse_groups, plan_decode,
                                                     plan_encode,
-                                                    stage_decode_batch,
-                                                    stage_encode_batch)
+                                                    stage_decode_batch)
 from finitestateentropy_tpu_torch.turbo.format import _pad_n
 from finitestateentropy_tpu_torch.turbo.rans import (parse_rans_group,
                                                      rans_compress)
@@ -41,7 +40,7 @@ def _encode_batch(datas, tlog=10):
     for i, d in enumerate(datas):
         ch = np.frombuffer(d, np.uint8)
         items.append((i, ch, _prep_group(ch, tlog)))
-    fc, mg, srcw = stage_encode_batch(items, n_pad)
+    fc, mg, srcw = STAGE_BATCH["byte"](items, n_pad)
     return fc, mg, srcw, n_pad // 4096, _hrows_cap(n_pad)
 
 
@@ -569,21 +568,21 @@ def test_decode_mode_rules():
 
 def _v1_batch(mode, n=262144):
     """3-group v1 decode arrays of each mode, from the port's numpy twins."""
-    from finitestateentropy_tpu_torch.turbo.api import (parse_groups16,
-                                                        plan_decode16,
-                                                        stage_decode16_batch)
+    from finitestateentropy_tpu_torch.turbo.api import plan_decode16
     from finitestateentropy_tpu_torch.turbo.pair import pair_compress
-    from finitestateentropy_tpu_torch.turbo.rans16 import rans16_compress
+    from finitestateentropy_tpu_torch.turbo.rans16 import (parse_rans16_group,
+                                                           rans16_compress)
 
     if mode in ("u16", "u16x"):
         rng = np.random.default_rng(3)
         hi, scale, a = (1023, 50, 1.2) if mode == "u16" else (4095, 300, 1.0)
         syms = [np.clip((rng.pareto(a, n // 2) * scale).astype(np.int64), 0,
                         hi).astype(np.uint16) for _ in range(3)]
-        groups = parse_groups16(b"".join(rans16_compress(s, False) for s in syms))
-        ((n_pad, tlog, _tots, big), idxs), = plan_decode16(groups)[1].items()
-        cs, tbl, init, hws, _t, t4, hrows = stage_decode16_batch(
-            groups, idxs, n_pad, tlog, False, big)
+        groups = parse_groups(b"".join(rans16_compress(s, False) for s in syms),
+                              parse_rans16_group)
+        ((wire, n_pad, tlog, kind), idxs), = plan_decode16(groups)[1].items()
+        cs, tbl, init, hws, _t, t4, hrows = stage_decode_batch(
+            groups, idxs, n_pad, tlog, wire, kind)
     else:
         twin = pair_compress if mode == "pair" else rans_compress
         datas = [generate_proba(p, n) for p in (80, 50, 90)]   # pair-eligible
@@ -637,10 +636,10 @@ def test_cuda_totals_decode_matches_plain(cuda, entry):
 
 def _u16_batches(alphabet, n=1 << 18, G=3):
     """rans_encode inputs and rows-wire decode arrays of G U16 groups."""
-    from finitestateentropy_tpu_torch.turbo.api import (
-        parse_groups16, plan_decode16, plan_encode16, stage_decode16_batch,
-        stage_encode16_batch)
-    from finitestateentropy_tpu_torch.turbo.rans16 import rans16_compress
+    from finitestateentropy_tpu_torch.turbo.api import (plan_decode16,
+                                                        plan_encode16)
+    from finitestateentropy_tpu_torch.turbo.rans16 import (parse_rans16_group,
+                                                           rans16_compress)
 
     rng = np.random.default_rng(8)
     hi, scale, a = (1023, 50, 1.2) if alphabet == "u16" else (4095, 300, 1.0)
@@ -648,13 +647,14 @@ def _u16_batches(alphabet, n=1 << 18, G=3):
                 hi).astype(np.uint16)
     _c, _f, batches = plan_encode16(s, n, True)
     ((n_pad, big, tlog), items), = batches.items()
-    fc, mg, srcw = stage_encode16_batch(items, n_pad, big)
+    fc, mg, srcw = STAGE_BATCH["u16x" if big else "u16"](items, n_pad)
     enc = (fc, mg, srcw, n_pad // 2048, (n_pad // 128 + 16 + 7) // 8 * 8, tlog)
-    groups = parse_groups16(b"".join(rans16_compress(s[i:i + n])
-                                     for i in range(0, len(s), n)))
-    ((n_pad, tlog, _tots, big), idxs), = plan_decode16(groups)[1].items()
-    cs, tbl, init, hws, tots, t2, hrows = stage_decode16_batch(
-        groups, idxs, n_pad, tlog, True, big)
+    groups = parse_groups(b"".join(rans16_compress(s[i:i + n])
+                                   for i in range(0, len(s), n)),
+                          parse_rans16_group)
+    ((wire, n_pad, tlog, kind), idxs), = plan_decode16(groups)[1].items()
+    cs, tbl, init, hws, tots, t2, hrows = stage_decode_batch(
+        groups, idxs, n_pad, tlog, wire, kind)
     dec = (dict(csize_hw=cs, tables=tbl, init_states=init, streams=hws,
                 steptots=tots), t2, hrows, tlog)
     return enc, dec

@@ -1,13 +1,16 @@
 """The in-place parse of TurboRANS frames.
 
-parse_groups and parse_groups16 read a frame through one memoryview and
-hand each group's parser a view at the group's offset.  Held here: the
+parse_groups (parse_rans_group's groups, or parse_rans16_group's for a
+U16 stream) reads a frame through one memoryview and hands each group's
+parser a view at the group's offset.  Held here: the
 parsed groups equal each group's own parse of its bytes; a payload is a
 view of the frame, so nothing copies the rest of it; a cut or flipped
 frame raises what the JAX package's parse loop raises on the same bytes,
 or parses to equal groups; the decode entries and pack_stream_words take
 the views as they took bytes.
 """
+from functools import partial
+
 import numpy as np
 import pytest
 
@@ -164,16 +167,17 @@ def test_parse_groups_mixed_frame_has_every_section():
 
 
 @pytest.mark.parametrize("alphabet", ["u16", "u16x"])
-def test_parse_groups16_equal_each_groups_parse(alphabet):
+def test_parse_groups_u16_equal_each_groups_parse(alphabet):
     parts = _u16_groups(alphabet)
     blob = b"".join(parts)
-    got = api.parse_groups16(blob)
+    got = api.parse_groups(blob, parse_rans16_group)
     assert [g[3] & 3 for g in got] == [0, 0, 2, 1]
     for g, part in zip(got, parts):
         want, used = parse_rans16_group(bytes(part))
         assert used == len(part) and _same(g, want)
         assert isinstance(g[7], memoryview) and g[7].obj is blob
-    _parity(blob, api.parse_groups16, j_rans16.parse_rans16_group)
+    _parity(blob, partial(api.parse_groups, parse=parse_rans16_group),
+            j_rans16.parse_rans16_group)
 
 
 @pytest.mark.parametrize("name", ["p80", "mixed"])

@@ -34,6 +34,7 @@ from finitestateentropy_tpu_torch.turbo import kernels as v0
 from finitestateentropy_tpu_torch.turbo import rans_kernels as rk
 from finitestateentropy_tpu_torch.turbo.format import (parse_group,
                                                        turbo_fse_compress)
+from finitestateentropy_tpu_torch.turbo.rans16 import parse_rans16_group
 from finitestateentropy_tpu_torch.turbo.state import to_tensors
 from finitestateentropy_tpu_torch.utils import generate_proba
 
@@ -88,7 +89,7 @@ def test_positional_compress16_in_jax_order_writes_jax_frames():
     want = j_api.turbo16_compress_device(s, 1 << 19, True)
     got = api.turbo16_compress_device(s, 1 << 19, False, device="cpu")
     assert got == want
-    assert api.parse_groups16(got)[0][8] is not None
+    assert api.parse_groups(got, parse_rans16_group)[0][8] is not None
     assert np.array_equal(
         api.turbo16_decompress_device(got, False, 8, device="cpu"), s)
 

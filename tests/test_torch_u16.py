@@ -16,8 +16,9 @@ from finitestateentropy_tpu.turbo.rans16 import (rans16_compress as j_twin16,
                                                  rans16_decompress as j_untwin16)
 from finitestateentropy_tpu_torch.turbo import rans_kernels as rk
 from finitestateentropy_tpu_torch.turbo.api import (
-    _round8, parse_groups16, plan_encode16, stage_decode16_batch,
-    stage_encode16_batch, turbo16_compress_device, turbo16_decompress_device)
+    STAGE_BATCH, _round8, parse_groups, plan_encode16, stage_decode_batch,
+    turbo16_compress_device, turbo16_decompress_device)
+from finitestateentropy_tpu_torch.turbo.rans16 import parse_rans16_group
 from finitestateentropy_tpu_torch.turbo.state import to_tensors
 
 ALPHABETS = ("u16", "u16x")
@@ -53,7 +54,7 @@ def test_u16_frames_equal_jax_twin(alphabet, steptots):
         assert np.array_equal(j_untwin16(port[pos:pos + len(twin)]),
                               s[i * gs:(i + 1) * gs])
         pos += len(twin)
-    g = parse_groups16(port)[0]
+    g = parse_groups(port, parse_rans16_group)[0]
     assert (g[5] > 1023) == (alphabet == "u16x")
     assert g[2] == (11 if alphabet == "u16" else 13)
     assert (g[8] is not None) == steptots
@@ -146,7 +147,7 @@ def test_u16_routing_matches_jax_dispatch(alphabet, windows, monkeypatch):
             assert name == "rans_decode"
             continue
         t2, hrows, G = a[5], a[6], a[1].shape[0]
-        tlog = parse_groups16(blob)[0][2]
+        tlog = parse_groups(blob, parse_rans16_group)[0][2]
         routed = j_dispatch(windows, t2, hrows, tlog, G, False, True,
                             alphabet == "u16x")
         assert (name == "rans_decode_w") == bool(routed[0])
@@ -156,7 +157,7 @@ def _encode_inputs(s):
     """The port's staged rans_encode inputs for one group of s."""
     _n, _f, batches = plan_encode16(s, 1 << 19, True)
     ((n_pad, big, tlog), items), = batches.items()
-    fc, mg, srcw = stage_encode16_batch(items, n_pad, big)
+    fc, mg, srcw = STAGE_BATCH["u16x" if big else "u16"](items, n_pad)
     return fc, mg, srcw, n_pad // 2048, _round8(n_pad // 128 + 16), tlog
 
 
@@ -200,11 +201,12 @@ def test_plain_decode_matches_jax_rans_decode_interpret(alphabet):
 
     n = 4096 if alphabet == "u16" else 16384   # smaller u16x groups go raw
     s = symbols(alphabet, 2 * n, 7)
-    groups = parse_groups16(j_twin16(s[:n], False) + j_twin16(s[n:], False))
+    groups = parse_groups(j_twin16(s[:n], False) + j_twin16(s[n:], False),
+                          parse_rans16_group)
     assert groups[0][2] == groups[1][2] and groups[0][8] is None
     assert (groups[0][6] >= 1 << 31).any()
-    cs, tbl, init, hws, tots, t2, hrows = stage_decode16_batch(
-        groups, [0, 1], n, groups[0][2], False, alphabet == "u16x")
+    cs, tbl, init, hws, tots, t2, hrows = stage_decode_batch(
+        groups, [0, 1], n, groups[0][2], alphabet, 0)
     assert tots is None
     hws[1, 2, 9] ^= 0x10000                   # corrupt group 1
     big = alphabet == "u16x"
