@@ -15,6 +15,7 @@ byte-identical to the JAX package's for the same flags.
 from __future__ import annotations
 
 import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
@@ -46,7 +47,7 @@ from .state import resolve_device, to_tensors
 from .tables import (pack_pair_dtable, pack_quad_dtable, pack_rans16_ctables,
                      pack_rans16_dtable, pack_rans16x_ctables,
                      pack_rans16x_dtable, pack_rans_ctables,
-                     pack_rans_dtable, pack_stream_words, stream_word_rows,
+                     pack_rans_dtable, stream_word_rows,
                      tch_of, v2_pick_nway)
 
 DEFAULT_GROUP = 1 << 20
@@ -559,6 +560,62 @@ _DTABLE = {"byte": lambda g, tlog: pack_rans_dtable(g[4], tlog),
            "u16": lambda g, tlog: pack_rans16_dtable(g[4], tlog),
            "u16x": lambda g, tlog: pack_rans16x_dtable(g[4], tlog)}
 
+# stage_decode_batch's calls and the groups they staged, summed
+stage_counts = {"batches": 0, "groups": 0}
+_stage_lock = threading.Lock()
+
+
+def _fill_dtables(tbl: np.ndarray, groups, idxs, tlog: int, wire: str) -> None:
+    """Write the batch's decode tables into tbl [G, tch_of(wire, tlog),
+    128] (zeroed), equal to _DTABLE[wire] group by group, in one pass over
+    the batch: the norms stacked into [G, A] freqs (zero freqs pad the
+    shorter alphabets and own no slot), each symbol's fields packed once,
+    and one np.repeat mapping every slot of every group to its symbol
+    for the gathers.  A batch holding a norm the parsers never give (its
+    freqs not summing to 2^tlog, or a field the wire cannot pack) goes to
+    the per-group packers, which give the old result or raise the old
+    exception."""
+    G, m = len(idxs), 1 << tlog
+    norms = [groups[i][4] for i in idxs]
+    A = max(len(nm) for nm in norms)
+    freq = np.zeros((G, A), np.int64)
+    for j, nm in enumerate(norms):
+        freq[j, : len(nm)] = nm
+    freq[freq == -1] = 1                         # low-probability symbols
+    cumul = np.cumsum(freq, axis=1)
+    if (wire in ("pair", "quad") and tlog > 12 or wire == "u16x" and m % 128
+            or freq.min() < 0 or (cumul[:, -1] != m).any()):
+        for j, i in enumerate(idxs):
+            tbl[j] = _DTABLE[wire](groups[i], tlog)
+        return
+    cumul -= freq
+    sym = np.arange(A)
+    at = np.repeat(np.arange(G * A), freq.reshape(-1)).reshape(G, m)
+
+    def per_slot(field):
+        """A field of each group's symbols ([G, A] or [A]) at each slot."""
+        return np.broadcast_to(field, (G, A)).reshape(-1)[at]
+
+    flat = tbl.reshape(G, -1)
+    if wire in ("byte", "u16"):
+        c_at, f_at = (20, 8) if wire == "byte" else (21, 10)
+        e = per_slot((cumul << c_at) | (freq << f_at) | sym)
+        flat[:, :m] = e.astype(np.uint32).view(np.int32)
+    elif wire == "u16x":                         # e1 plane, then symbols
+        e1 = per_slot(freq << 13) | (np.arange(m) - per_slot(cumul))
+        flat[:, :m] = e1.astype(np.int32)
+        flat[:, m : 2 * m] = per_slot(sym)
+    else:                                        # pair, quad: + the id LUT
+        e = (per_slot((sym << (2 * tlog)) | (freq << tlog))
+             | (np.arange(m) - per_slot(cumul)))
+        flat[:, :m] = e.astype(np.int32)
+        lut = np.zeros((G, 256), np.int32 if wire == "pair" else "<u4")
+        for j, i in enumerate(idxs):
+            ids = groups[i][9]
+            lut[j, : len(ids)] = ids
+        lo = max(m // 128, 1) * 128
+        flat[:, lo : lo + 256] = lut.view(np.int32)
+
 
 def stage_decode_batch(groups, idxs, n_pad: int, tlog: int,
                        wire: str = "byte", kind: int = 2):
@@ -566,32 +623,37 @@ def stage_decode_batch(groups, idxs, n_pad: int, tlog: int,
     one wire (byte, pair, quad; u16, u16x for the U16 codec), padded size
     (in the wire's symbols), tableLog and section kind (plan_decode,
     plan_decode16): (csize_hw, tables, init_states, streams, steptots, t4,
-    hrows), steptots [G,T,8] (kind 2), [G,T] (kind 1) or None (v1)."""
+    hrows), steptots [G,T,8] (kind 2), [G,T] (kind 1) or None (v1).
+    Staged on the calling thread: the tables in one pass over the batch
+    (_fill_dtables), then one pass of slice copies into the batch arrays;
+    a wire payload is already the packed word layout, so its bytes go
+    straight into the words, and the words past it are zeroed.  Counted
+    in stage_counts."""
     G = len(idxs)
+    with _stage_lock:
+        stage_counts["batches"] += 1
+        stage_counts["groups"] += G
     t4 = _wire_t4(wire, n_pad)
     hrows = _round8(max((groups[i][1] + 127) // 128 for i in idxs) + 16)
     T = n_pad // TURBO_LANES
     srows = stream_word_rows(hrows)
     tbl = np.zeros((G, tch_of(wire, tlog), 128), np.int32)
     init = np.zeros((G, 8, 128), np.int32)
-    hws = np.zeros((G, srows, 128), np.int32)
+    hws = np.empty((G, srows, 128), np.int32)   # every word written below
     cs = np.zeros(G, np.int32)
     tots = (None if kind == 0 else
-            np.zeros((G, T) if kind == 1 else (G, T, 8), np.int32))
-
-    def fill(j_i):
-        # the wire payload is already the packed word layout — staging is
-        # a straight byte copy
-        j, i = j_i
+            np.empty((G, T) if kind == 1 else (G, T, 8), np.int32))
+    _fill_dtables(tbl, groups, idxs, tlog, wire)
+    words = hws.reshape(G, -1).view(np.uint8)
+    for j, i in enumerate(idxs):
         g = groups[i]
-        tbl[j] = _DTABLE[wire](g, tlog)
         init[j] = g[6].view(np.int32).reshape(8, 128)
-        hws[j] = pack_stream_words(g[7], srows)
+        payload = np.frombuffer(g[7], np.uint8)
+        words[j, : len(payload)] = payload
+        words[j, len(payload) :] = 0
         cs[j] = g[1]
         if kind:
             tots[j] = g[8]
-
-    _map(fill, list(enumerate(idxs)))
     return cs, tbl, init, hws, tots, t4, hrows
 
 
