@@ -9,20 +9,38 @@ whole batch.  X1 and X2 decode the same bytes; the X2 tables are built on
 the host per block (huf_read_dtable_x2 + pack_dtable_x2), as in the JAX
 package.  Each stage is the span "huf.<stage>" and adds its seconds to
 fse_codec.stage_seconds while that is a dict (fse_codec._stage).
+``counts`` tallies the blocks of each call: how compress_blocks stored
+them ("coded", "raw", "rle") and which path decompress_blocks decoded them
+on ("decoded_x1", "decoded_x2", "decoded_mesh").
 """
 from __future__ import annotations
+
+import threading
+from collections import Counter
 
 import numpy as np
 import torch
 
 from ..config import HUF_TABLELOG_DEFAULT, huf_blockbound
 from ..errors import CorruptionError
-from ..refimpl.blocktypes import BlockResult
+from ..refimpl.blocktypes import BlockResult, Kind
 from ..refimpl.hist import hist_count
 from ..refimpl.huf import huf_build_ctable, huf_read_stats, huf_write_ctable
 from ..refimpl.norm import fse_optimal_table_log
 from ..turbo.state import resolve_device
 from .fse_codec import _codec_mesh, _pad_batch, _pull_words, _round_up, _stage
+
+counts = {"coded": 0, "raw": 0, "rle": 0,
+          "decoded_x1": 0, "decoded_x2": 0, "decoded_mesh": 0}
+_counts_lock = threading.Lock()
+_KIND_KEY = {Kind.COMPRESSED: "coded", Kind.RAW: "raw", Kind.RLE: "rle"}
+
+
+def _count(added: dict) -> None:
+    """Add a call's blocks, {key: blocks}, to counts."""
+    with _counts_lock:
+        for k, n in added.items():
+            counts[k] += n
 
 
 class HufTpuCodec:
@@ -108,6 +126,7 @@ class HufTpuCodec:
         with _stage("huf.c_prep", dev):
             results, todo = self.encode_plan(blocks)
         if not todo:
+            _count(Counter(_KIND_KEY[r.kind] for r in results))
             return results
         with _stage("huf.c_stage", dev):
             e = self.encode_inputs(todo)
@@ -142,6 +161,7 @@ class HufTpuCodec:
                     results[i] = BlockResult.raw()
                 else:
                     results[i] = BlockResult.compressed(payload)
+        _count(Counter(_KIND_KEY[r.kind] for r in results))
         return results
 
     # -- decompression ----------------------------------------------------
@@ -212,7 +232,9 @@ class HufTpuCodec:
             seg_cap, tlogs, weights = d["max_seg"], d["tlog"], d["weights"]
             mesh = self._get_mesh()
         # device: tables per block, repeated x4 for the stream axis
-        if self.decoder != "x2" and mesh is not None:
+        path = "decoded_x2" if self.decoder == "x2" else (
+            "decoded_mesh" if mesh is not None else "decoded_x1")
+        if path == "decoded_mesh":
             from ..parallel.dp import sharded_huf_decode
 
             with _stage("huf.d_decode", dev, sync=True):
@@ -227,7 +249,7 @@ class HufTpuCodec:
                 out, err = sharded_huf_decode(mesh, seg_cap)(
                     *(rep4(d[k]) for k in ("streams", "csize", "n_out", "tlog")), weightsp,
                     np.resize(tlogs.reshape(B, 4)[:, 0], Bp))
-        elif self.decoder == "x2":
+        elif path == "decoded_x2":
             with _stage("huf.d_h2d", dev, sync=True):
                 args = [self._tensor(d[k]) for k in ("streams", "csize", "n_out")]
                 tl4 = self._tensor(np.repeat(d["x2_tlog"], 4))
@@ -261,4 +283,5 @@ class HufTpuCodec:
                 parts = [out[4 * k + j, : (seg if j < 3 else rsize - 3 * seg)]
                          for j in range(4)]
                 res.append(np.concatenate(parts).tobytes())
-            return res
+        _count({path: B})
+        return res
