@@ -7,10 +7,11 @@ section: steptots=False); the totals wire (FLAG_TOTALS: totals_only=True);
 and the TurboRANS-U16 codec for 16-bit symbol alphabets
 (turbo16_compress_device / turbo16_decompress_device, turbo/rans16.py).
 Host side does per-group stats and table packing (histogram,
-normalization, NCount, the pair / quad alphabets: O(group) numpy); the
-coder chains run in the CUDA kernels behind rans_kernels.py.  Groups of
-one wire, padded size and tableLog batch into one launch.  Frames are
-byte-identical to the JAX package's for the same flags.
+normalization, NCount; the pair / quad alphabets, ids and escapes in one
+native pass, turbo/wire_plan.py); the coder chains run in the CUDA kernels
+behind rans_kernels.py.  Groups of one wire, padded size and tableLog batch
+into one launch.  Frames are byte-identical to the JAX package's for the
+same flags.
 """
 from __future__ import annotations
 
@@ -33,8 +34,8 @@ from ..parallel.turbo_dp import (sharded_turbo_decode, sharded_turbo_decode_v2,
 from ..utils.debug import debuglog
 from ..utils.trace import span
 from .format import TURBO_LANES, _pad_n
-from .pair import apply_escapes, predicted_bits, prep_pair_group
-from .quad import _pad_q, prep_quad_group
+from .pair import apply_escapes, predicted_bits
+from .quad import _pad_q
 from .rans import (FLAG_QUAD, FLAG_RAW, FLAG_RLE, FLAG_ROWS4, FLAG_STEPTOTS,
                    FLAG_TOTALS, RANS_MAGIC, RANS_SPEED_TABLELOG,
                    RANS_TABLELOG, _HDR, _pack_rows4, parse_rans_group)
@@ -49,6 +50,7 @@ from .tables import (pack_pair_dtable, pack_quad_dtable, pack_rans16_ctables,
                      pack_rans16x_dtable, pack_rans_ctables,
                      pack_rans_dtable, stream_word_rows,
                      tch_of, v2_pick_nway)
+from .wire_plan import WirePlan
 
 DEFAULT_GROUP = 1 << 20
 MAX_GROUP = 4 << 20   # the JAX encoder's VMEM bound; kept: it shapes frames
@@ -150,13 +152,18 @@ def _map(fn, items) -> list:
     return [fn(it) for it in items]
 
 
-def _wire_ests(ch: np.ndarray, prep_byte, tlog_byte: int, pp, qp):
+def _wire_ests(ch: np.ndarray, prep_byte, tlog_byte: int, pp, qp,
+               byte_counts=None):
     """Predicted group sizes (payload + per-wire sections; the 4 KiB init
     and 16 B header are wire-independent and cancel) for the byte wire and
-    — when eligible — the pair (order-1) and quad (order-3) wires."""
+    — when eligible — the pair (order-1) and quad (order-3) wires.
+    byte_counts: the group's 256 byte counts where a plan has them
+    (wire_plan.WirePlan), else they are counted here."""
     n = len(ch)
     norm_b, max_sv, ncount_b, _mfs = prep_byte
-    counts_b = np.bincount(ch, minlength=max_sv + 1)[: max_sv + 1]
+    if byte_counts is None:
+        byte_counts = np.bincount(ch, minlength=max_sv + 1)
+    counts_b = byte_counts[: max_sv + 1]
     # 4 B/step rows4 steptots assumed on every side (cancels any bias)
     ests = {"byte": (predicted_bits(norm_b, counts_b, tlog_byte) / 8
                      + len(ncount_b) + 4 * (_pad_n(n) // TURBO_LANES))}
@@ -172,7 +179,7 @@ def _wire_ests(ch: np.ndarray, prep_byte, tlog_byte: int, pp, qp):
 
 
 def _pick_wire(ch: np.ndarray, prep_byte, tlog_byte: int, pp, qp,
-               pair_mode: int, quad_mode: int) -> str:
+               pair_mode: int, quad_mode: int, byte_counts=None) -> str:
     """Auto dispatch across the byte / pair / quad wires: the FASTEST
     eligible wire whose predicted size is within PAIR_RATIO_GIVE of the
     best candidate wins (quad decodes 4 bytes/step, pair 2, byte 1 —
@@ -184,7 +191,7 @@ def _pick_wire(ch: np.ndarray, prep_byte, tlog_byte: int, pp, qp,
         return "pair"
     ests = _wire_ests(ch, prep_byte, tlog_byte,
                       pp if pair_mode != 0 else None,
-                      qp if quad_mode != 0 else None)
+                      qp if quad_mode != 0 else None, byte_counts)
     best = min(ests.values())
     for wire in ("quad", "pair"):        # fastest first
         if wire in ests and ests[wire] <= best * (1 + PAIR_RATIO_GIVE):
@@ -290,16 +297,19 @@ def plan_encode(data: bytes, group_size: int, table_log: int, pair: int = -1,
         if p is None:
             return None, None
         pp = qp = None
+        # one native pass plans both wires, in the span of the first to ask
+        plan = WirePlan(ch, pair != 0, quad != 0)
         if pair != 0:
             with span("turbo.prep.pair"):
-                pp = prep_pair_group(ch, pair_table_log)
+                pp = plan.pair(pair_table_log)
         if quad != 0:
             with span("turbo.prep.quad"):
-                qp = prep_quad_group(ch, quad_table_log)
+                qp = plan.quad(quad_table_log)
         if pp is None and qp is None:        # no other wire to weigh
             return "byte", p
         with span("turbo.prep.pick"):
-            wire = _pick_wire(ch, p, table_log, pp, qp, pair, quad)
+            wire = _pick_wire(ch, p, table_log, pp, qp, pair, quad,
+                              plan.byte_counts)
         return wire, {"byte": p, "pair": pp, "quad": qp}[wire]
 
     preps = _map(full_prep, chunks)
@@ -694,13 +704,17 @@ def plan_decode(groups):
 
 def _group_bytes(wire: str, g, words: np.ndarray) -> bytes:
     """A group's decoded bytes from its output words; pair and quad groups
-    get their escaped values patched in."""
+    get their escaped values patched in, in place (words is the decode's
+    own output).  One copy, the returned bytes: on an H100's host each
+    further 1 MiB temporary cost about a millisecond a group once the
+    allocator handed such blocks back between calls."""
     n = g[0]
-    if wire == "byte":
-        return words.astype("<i4").tobytes()[:n]
-    dtype, k = (np.uint32, (n + 3) // 4) if wire == "quad" else (np.uint16, (n + 1) // 2)
-    vals = words.astype("<i4").reshape(-1).view(dtype)[:k].copy()
-    return apply_escapes(vals, g[10]).tobytes()[:n]
+    flat = words.astype("<i4", copy=False).reshape(-1)
+    if wire != "byte":
+        dtype, k = ((np.uint32, (n + 3) // 4) if wire == "quad"
+                    else (np.uint16, (n + 1) // 2))
+        apply_escapes(flat.view(dtype)[:k], g[10])
+    return flat.view(np.uint8)[:n].tobytes()
 
 
 def _decode_batch(wire: str, args, steptots, t4: int, hrows: int, tlog: int,
