@@ -572,7 +572,20 @@ _DTABLE = {"byte": lambda g, tlog: pack_rans_dtable(g[4], tlog),
 
 # stage_decode_batch's calls and the groups they staged, summed
 stage_counts = {"batches": 0, "groups": 0}
-_stage_lock = threading.Lock()
+# the decode batches and their groups by the route that decoded them:
+# "flat" (v1 groups, rans_decode), "v2" (rans_decode_v2), "w"
+# (rans_decode_w), "mesh" (_mesh_decode), summed
+decode_routes = {r: {"batches": 0, "groups": 0}
+                 for r in ("flat", "v2", "w", "mesh")}
+_counts_lock = threading.Lock()
+
+
+def _count(counts: dict, groups: int) -> None:
+    """Add one batch of `groups` groups to counts (stage_counts, or a route
+    of decode_routes)."""
+    with _counts_lock:
+        counts["batches"] += 1
+        counts["groups"] += groups
 
 
 def _fill_dtables(tbl: np.ndarray, groups, idxs, tlog: int, wire: str) -> None:
@@ -640,9 +653,7 @@ def stage_decode_batch(groups, idxs, n_pad: int, tlog: int,
     straight into the words, and the words past it are zeroed.  Counted
     in stage_counts."""
     G = len(idxs)
-    with _stage_lock:
-        stage_counts["batches"] += 1
-        stage_counts["groups"] += G
+    _count(stage_counts, G)
     t4 = _wire_t4(wire, n_pad)
     hrows = _round8(max((groups[i][1] + 127) // 128 for i in idxs) + 16)
     T = n_pad // TURBO_LANES
@@ -723,20 +734,23 @@ def _decode_batch(wire: str, args, steptots, t4: int, hrows: int, tlog: int,
     u16, u16x) and every entry point: v1 groups (steptots None) through
     rans_decode, the others through the entry _window_dispatch picks
     (windows=1: rans_decode_v2).  args: (csize_hw, tables, init_states,
-    streams) tensors."""
+    streams) tensors.  Counted in decode_routes."""
     modes = dict(u16=wire in ("pair", "u16", "u16x"), u16x=wire == "u16x",
                  pair=wire == "pair")
-    if steptots is None:        # v1: rank and cursor chain in the kernel
-        return rans_decode(*args, t4, hrows, interpret, tlog=tlog, **modes)
     G = args[0].shape[0]
+    if steptots is None:        # v1: rank and cursor chain in the kernel
+        _count(decode_routes["flat"], G)
+        return rans_decode(*args, t4, hrows, interpret, tlog=tlog, **modes)
     modes["quad"] = wire == "quad"
     w_nway, w_s = _window_dispatch(windows, t4, hrows, tlog, G,
                                    steptots.dim() == 2, **modes)
     if w_nway:
         debuglog(2, "turbo decode: rans_decode_w entry (windows=%d, t4=%d, "
                     "G=%d, wire=%s)", windows, t4, G, wire)
+        _count(decode_routes["w"], G)
         return rans_decode_w(*args, steptots, t4, hrows, w_nway, tlog, w_s,
                              interpret, **modes)
+    _count(decode_routes["v2"], G)
     return rans_decode_v2(*args, steptots, t4, hrows, interpret, tlog, **modes)
 
 
@@ -746,9 +760,10 @@ def _mesh_decode(mesh_obj, wire: str, cs, tbl, init, hws, tots, t4: int,
     it (JAX api.py:643-670): the groups padded to a multiple of the mesh
     size; v1 groups through rans_decode, the others through
     rans_decode_v2.  Returns the gathered (out, err) of the padded
-    batch."""
+    batch.  Counted in decode_routes["mesh"] (the groups before padding)."""
     is_pair = wire == "pair"
     m = mesh_obj.devices.size
+    _count(decode_routes["mesh"], len(cs))
     if tots is None:
         step = sharded_turbo_decode(mesh_obj, t4, hrows, interpret, tlog,
                                     u16=is_pair, pair=is_pair)
@@ -786,28 +801,35 @@ def turbo_decompress_device(blob: bytes, interpret: bool = False,
             G = len(idxs)
             debuglog(3, "turbo decode: %s batch of %d groups, n_pad=%d, tlog=%d, "
                      "sect_kind=%d", wire, G, n_pad, tlog, kind)
-            with _stage("d_stage", dev):
-                cs, tbl, init, hws, tots, t4, hrows = stage_decode_batch(
-                    groups, idxs, n_pad, tlog, wire, kind)
-            if mesh_obj is not None:
-                with _stage("d_kernel", dev):
-                    outw, err = _mesh_decode(mesh_obj, wire, cs, tbl, init, hws,
-                                             tots, t4, hrows, tlog, interpret)
-            else:
-                with _stage("d_h2d", dev):
-                    ins = to_tensors(dev, csize_hw=cs, tables=tbl,
-                                     init_states=init, streams=hws)
-                    steptots = (to_tensors(dev, steptots=tots)["steptots"]
-                                if kind else None)
-                with _stage("d_kernel", dev):
-                    outw, err = _decode_batch(wire, tuple(ins.values()), steptots,
-                                              t4, hrows, tlog, windows, interpret)
-            with _stage("d_d2h", dev):
-                err = err[:G].cpu().numpy()
-                if err.any():
-                    raise ValueError(
-                        f"turbo-rans device decode: corrupt groups {np.nonzero(err)[0]}")
-                outw = outw[:G].cpu().numpy()
+            # one batch from its staging through the host's wait for its
+            # flags and rows: the batch's kernels start on the card inside
+            # this span even where the trace places the device's clock a few
+            # ms early (staging and uploads launch no kernel)
+            with span("turbo.d_batch"):
+                with _stage("d_stage", dev):
+                    cs, tbl, init, hws, tots, t4, hrows = stage_decode_batch(
+                        groups, idxs, n_pad, tlog, wire, kind)
+                if mesh_obj is not None:
+                    with _stage("d_kernel", dev):
+                        outw, err = _mesh_decode(mesh_obj, wire, cs, tbl, init,
+                                                 hws, tots, t4, hrows, tlog,
+                                                 interpret)
+                else:
+                    with _stage("d_h2d", dev):
+                        ins = to_tensors(dev, csize_hw=cs, tables=tbl,
+                                         init_states=init, streams=hws)
+                        steptots = (to_tensors(dev, steptots=tots)["steptots"]
+                                    if kind else None)
+                    with _stage("d_kernel", dev):
+                        outw, err = _decode_batch(wire, tuple(ins.values()),
+                                                  steptots, t4, hrows, tlog,
+                                                  windows, interpret)
+                with _stage("d_d2h", dev):
+                    err = err[:G].cpu().numpy()
+                    if err.any():
+                        raise ValueError(
+                            f"turbo-rans device decode: corrupt groups {np.nonzero(err)[0]}")
+                    outw = outw[:G].cpu().numpy()
             with _stage("d_copy", dev):
                 for j, i in enumerate(idxs):
                     pieces[i] = _group_bytes(wire, groups[i], outw[j])

@@ -27,8 +27,8 @@ HOST_SPANS = {"turbo.compress": {"turbo.c_prep", "turbo.c_stage", "turbo.c_h2d",
                                  "turbo.prep.byte", "turbo.prep.pair",
                                  "turbo.prep.quad", "turbo.prep.pick"},
               "turbo.decompress": {"turbo.d_parse", "turbo.d_stage", "turbo.d_h2d",
-                                   "turbo.d_kernel", "turbo.d_d2h", "turbo.d_copy",
-                                   "turbo.d_join"}}
+                                   "turbo.d_batch", "turbo.d_kernel", "turbo.d_d2h",
+                                   "turbo.d_copy", "turbo.d_join"}}
 RESIDENT_SPANS = {"resident.compress": {"resident.slice", "resident.hist",
                                         "resident.norm", "resident.tables",
                                         "resident.pad", "resident.encode",
@@ -48,7 +48,8 @@ SPAN_METRICS = ("resident.host_ms_per_mib", "resident.decompress_host_ms_per_mib
                 "resident.decompress_h2d_ms_per_mib", "api.prep_byte_ms_per_mib",
                 "api.prep_wires_ms_per_mib", "compat.compress_checksum_ms_per_mib",
                 "compat.compress_host_ms_per_mib", "compat.decompress_checksum_ms_per_mib",
-                "compat.decompress_host_ms_per_mib")
+                "compat.decompress_host_ms_per_mib", "kernels.decode_batch_ms_per_mib",
+                "kernels.decode_batch_roofline_pct")
 
 
 def _data() -> bytes:
