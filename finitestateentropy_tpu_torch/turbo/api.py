@@ -34,7 +34,7 @@ from ..parallel.turbo_dp import (sharded_turbo_decode, sharded_turbo_decode_v2,
 from ..utils.debug import debuglog
 from ..utils.trace import span
 from .format import TURBO_LANES, _pad_n
-from .pair import apply_escapes, predicted_bits
+from .pair import predicted_bits
 from .quad import _pad_q
 from .rans import (FLAG_QUAD, FLAG_RAW, FLAG_RLE, FLAG_ROWS4, FLAG_STEPTOTS,
                    FLAG_TOTALS, RANS_MAGIC, RANS_SPEED_TABLELOG,
@@ -693,39 +693,110 @@ def parse_groups(blob: bytes, parse=parse_rans_group) -> list:
 
 
 def plan_decode(groups):
-    """({i: bytes} of the raw and RLE groups, {(wire, n_pad, tlog, kind):
-    [i]}: the decode entries' batches).  kind is the section: 0 none (v1,
-    ratio mode), 1 FLAG_TOTALS step totals, 2 FLAG_STEPTOTS row counts."""
-    pieces: dict[int, bytes] = {}
+    """(offsets, {(wire, n_pad, tlog, kind): [i]}: the decode entries'
+    batches).  offsets [len(groups) + 1] int64: group i's bytes lie at
+    offsets[i] : offsets[i + 1] of the output.  The raw and RLE groups join
+    no batch.  kind is the section: 0 none (v1, ratio mode), 1 FLAG_TOTALS
+    step totals, 2 FLAG_STEPTOTS row counts."""
+    offs = np.zeros(len(groups) + 1, np.int64)
     batches: dict[tuple[str, int, int, int], list[int]] = {}
     for i, g in enumerate(groups):
-        n, tlog, flags, payload, steptots = g[0], g[2], g[3], g[7], g[8]
-        if flags & FLAG_RAW:
-            pieces[i] = bytes(payload)
-        elif flags & FLAG_RLE:
-            pieces[i] = bytes([payload[0]]) * n
-        else:
+        n, tlog, flags, steptots = g[0], g[2], g[3], g[8]
+        offs[i + 1] = offs[i] + n
+        if not flags & (FLAG_RAW | FLAG_RLE):
             wire = ("byte" if len(g) == 9
                     else "quad" if flags & FLAG_QUAD else "pair")
             kind = 0 if steptots is None else steptots.ndim
             batches.setdefault((wire, _wire_pad(wire, n), tlog, kind),
                                []).append(i)
-    return pieces, batches
+    return offs, batches
 
 
-def _group_bytes(wire: str, g, words: np.ndarray) -> bytes:
-    """A group's decoded bytes from its output words; pair and quad groups
-    get their escaped values patched in, in place (words is the decode's
-    own output).  One copy, the returned bytes: on an H100's host each
-    further 1 MiB temporary cost about a millisecond a group once the
-    allocator handed such blocks back between calls."""
-    n = g[0]
-    flat = words.astype("<i4", copy=False).reshape(-1)
-    if wire != "byte":
-        dtype, k = ((np.uint32, (n + 3) // 4) if wire == "quad"
-                    else (np.uint16, (n + 1) // 2))
-        apply_escapes(flat.view(dtype)[:k], g[10])
-    return flat.view(np.uint8)[:n].tobytes()
+# A decompress's output lands in a host buffer laid out as the output, one
+# copy of which is the returned bytes.  Each thread keeps its own (pinned
+# where the decode runs on CUDA, so a batch's rows arrive by DMA), grown to
+# the largest output seen and never shrunk: pinning costs milliseconds, so a
+# buffer is allocated only as the output outgrows it.  An output above
+# STAGING_MAX takes a plain buffer of the call's own.
+STAGING_MAX = 256 << 20
+# the calls by the buffer they took ("pinned" or "host": the thread's kept
+# buffer; "over_cap": their own) and the kept buffers allocated ("grown"),
+# summed
+output_staging = {"pinned": 0, "host": 0, "over_cap": 0, "grown": 0}
+_staging = threading.local()
+
+
+def _output_buffer(total: int, pinned: bool) -> torch.Tensor:
+    """A uint8 host tensor of at least total bytes for one decompress's
+    output: the calling thread's kept buffer, grown in whole MiB when the
+    output outgrows it; above STAGING_MAX one of the call's own.  Counted
+    in output_staging."""
+    if total > STAGING_MAX:
+        key, grown, buf = "over_cap", False, torch.empty(total, dtype=torch.uint8)
+    else:
+        key = "pinned" if pinned else "host"
+        bufs = _staging.__dict__.setdefault("bufs", {})
+        buf = bufs.get(key)
+        grown = buf is None or buf.numel() < total
+        if grown:
+            bufs[key] = None                 # free the old one first
+            buf = bufs[key] = torch.empty(-(-total >> 20) << 20,
+                                          dtype=torch.uint8, pin_memory=pinned)
+    with _counts_lock:
+        output_staging[key] += 1
+        output_staging["grown"] += grown
+    return buf
+
+
+def _pull_rows(outw: torch.Tensor, idxs, offs: np.ndarray,
+               out: torch.Tensor) -> None:
+    """Copy each group's bytes of a decode batch's output rows outw [>= G,
+    rows, 128] to its place in out: only the n bytes a group owns, in one
+    copy where the batch's groups lie back to back in the output and all
+    but the last fill their rows, else in one a group.  Returns once the
+    copies have landed."""
+    G = len(idxs)
+    rows = outw[:G].reshape(G, -1).view(torch.uint8)
+    i0, i1 = idxs[0], idxs[-1]
+    if i1 - i0 == G - 1 and (np.diff(offs[i0 : i1 + 1]) == rows.shape[1]).all():
+        lo, hi = int(offs[i0]), int(offs[i1 + 1])
+        out[lo:hi].copy_(rows.reshape(-1)[: hi - lo], non_blocking=True)
+    else:
+        for j, i in enumerate(idxs):
+            lo, hi = int(offs[i]), int(offs[i + 1])
+            out[lo:hi].copy_(rows[j, : hi - lo], non_blocking=True)
+    if rows.is_cuda:
+        torch.cuda.current_stream(rows.device).synchronize()
+
+
+def patch_escapes(g, seg: np.ndarray) -> None:
+    """Write a pair or quad group's escaped values (g[10]: word positions
+    and values) into seg, the group's n decoded bytes at any alignment:
+    whole words through an unaligned view, a final partial word (n not a
+    multiple of the word) byte by byte, so no byte past n is written."""
+    if g[10] is None or not len(g[10][0]):
+        return
+    w = 4 if g[3] & FLAG_QUAD else 2
+    pos, vals = g[10]
+    n = len(seg)
+    whole = pos < n // w
+    seg[: n // w * w].view(f"<u{w}")[pos[whole]] = vals[whole]
+    if not whole.all():              # the partial word's last value wins
+        tail = np.array(vals[~whole][-1:], f"<u{w}").view(np.uint8)
+        seg[n // w * w :] = tail[: n % w]
+
+
+def _write_direct(groups, offs: np.ndarray, out: np.ndarray) -> None:
+    """The raw and RLE groups' bytes, from the frame, and the pair and quad
+    groups' escapes, into their places in out."""
+    for i, g in enumerate(groups):
+        flags, seg = g[3], out[offs[i] : offs[i + 1]]
+        if flags & FLAG_RAW:
+            seg[:] = np.frombuffer(g[7], np.uint8)
+        elif flags & FLAG_RLE:
+            seg[:] = g[7][0]
+        elif len(g) == 11:
+            patch_escapes(g, seg)
 
 
 def _decode_batch(wire: str, args, steptots, t4: int, hrows: int, tlog: int,
@@ -788,14 +859,17 @@ def turbo_decompress_device(blob: bytes, interpret: bool = False,
     and v1 groups (ratio mode, byte or pair) through rans_decode.  mesh > 1
     splits each batch's groups over that many devices, as
     turbo_compress_device does; there, as in the JAX package, speed-wire
-    batches all go through rans_decode_v2.  Raises ValueError on a corrupt
+    batches all go through rans_decode_v2.  Every group's bytes go straight
+    to their place in the calling thread's output buffer (_output_buffer)
+    and the result is one copy of it.  Raises ValueError on a corrupt
     group.  interpret, device: as turbo_compress_device."""
     with span("turbo.decompress"):
         dev = resolve_device(device)
         mesh_obj = _mesh_of(mesh, dev)
         with _stage("d_parse", dev):
             groups = parse_groups(blob)
-            pieces, batches = plan_decode(groups)
+            offs, batches = plan_decode(groups)
+            out = _output_buffer(int(offs[-1]), dev.type == "cuda")
 
         for (wire, n_pad, tlog, kind), idxs in batches.items():
             G = len(idxs)
@@ -829,12 +903,11 @@ def turbo_decompress_device(blob: bytes, interpret: bool = False,
                     if err.any():
                         raise ValueError(
                             f"turbo-rans device decode: corrupt groups {np.nonzero(err)[0]}")
-                    outw = outw[:G].cpu().numpy()
-            with _stage("d_copy", dev):
-                for j, i in enumerate(idxs):
-                    pieces[i] = _group_bytes(wire, groups[i], outw[j])
+                    _pull_rows(outw, idxs, offs, out)
+        with _stage("d_copy", dev):
+            _write_direct(groups, offs, out.numpy())
         with _stage("d_join", dev):
-            return b"".join(pieces[i] for i in range(len(groups)))
+            return out.numpy()[: offs[-1]].tobytes()
 
 
 # ---------------------------------------------------------------------------
