@@ -7,7 +7,9 @@ sources at once (one ``nvcc`` process per source, started together).  A
 library's file name carries a hash of its source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source is never served a
 stale build.  The builds land in
-``build/torch_kernels/`` at the root of the checkout.
+``build/torch_kernels/`` at the root of the checkout.  The same call builds
+utils/profiler_tls.py's host library, when it is missing, beside the nvcc
+runs, so a cold checkout pays for it in the warm-up.
 """
 from __future__ import annotations
 
@@ -16,8 +18,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
+
+from ..utils import profiler_tls
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -54,7 +59,14 @@ def build_all() -> dict[str, dict]:
     per kernel).
     Raises RuntimeError with nvcc's output when a build fails."""
     todo = [n for n in SOURCES if not library_path(n).exists()]
+    tls = None
+    if not profiler_tls.library_path().exists():
+        # the profiler's thread-state shim (host C++), beside the nvcc runs
+        tls = threading.Thread(target=_build_profiler_tls)
+        tls.start()
     if not todo:
+        if tls is not None:
+            tls.join()
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -77,9 +89,20 @@ def build_all() -> dict[str, dict]:
                        "seconds": time.perf_counter() - t0,
                        "ptxas": [ln.strip() for ln in log.splitlines()
                                  if "ptxas info" in ln or "stack frame" in ln]}
+    if tls is not None:
+        tls.join()
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return built
+
+
+def _build_profiler_tls() -> None:
+    """Build utils/profiler_tls.py's library; a failure leaves it to that
+    module's first load to report (traced pool items then run unjoined)."""
+    try:
+        profiler_tls.build()
+    except (OSError, subprocess.CalledProcessError):
+        pass
 
 
 def load(name: str) -> ctypes.CDLL:

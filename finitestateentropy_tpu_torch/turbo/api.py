@@ -31,8 +31,9 @@ from ..refimpl.norm import fse_normalize_count, fse_optimal_table_log
 from ..parallel.mesh import Mesh, get_mesh
 from ..parallel.turbo_dp import (sharded_turbo_decode, sharded_turbo_decode_v2,
                                  sharded_turbo_encode, sharded_turbo_encode_v2)
+from ..utils import profiler_tls
 from ..utils.debug import debuglog
-from ..utils.trace import span
+from ..utils.trace import collecting, span
 from .format import TURBO_LANES, _pad_n
 from .pair import predicted_bits
 from .quad import _pad_q
@@ -142,14 +143,50 @@ def _stage(name: str, dev: torch.device):
                                + time.perf_counter() - t0)
 
 
-def _map(fn, items) -> list:
+def _map(fn, items, name: str) -> list:
     """fn over items, threaded across cores (numpy's bulk ops release the
-    GIL); every result is read, so a worker's exception is raised."""
+    GIL); every result is read, so a worker's exception is raised.  With a
+    profiler collecting on the calling thread (checked once), _map_traced
+    names each item "turbo.pool.<name>"; without one, nothing is added."""
     workers = min(len(items), os.cpu_count() or 1)
+    if collecting():
+        return _map_traced(fn, items, name, workers)
     if workers > 1:
         with ThreadPoolExecutor(max_workers=workers) as ex:
             return list(ex.map(fn, items))
     return [fn(it) for it in items]
+
+
+def _map_traced(fn, items, name: str, workers: int) -> list:
+    """_map under a profiler: each item is the span "turbo.pool.<name>" on
+    the thread that runs it, a pool worker entering the caller's profiler
+    state for it (utils/profiler_tls.py; without that library the workers'
+    spans are dropped), and the items' wall and CPU seconds, read around fn
+    on that thread, are added to pool_seconds."""
+    label, times = "turbo.pool." + name, []
+    state = profiler_tls.capture() if workers > 1 else None
+
+    def item(it):
+        with profiler_tls.joined(state), span(label):
+            t0, c0 = time.perf_counter_ns(), time.thread_time_ns()
+            try:
+                return fn(it)
+            finally:
+                times.append((time.perf_counter_ns() - t0,
+                              time.thread_time_ns() - c0))
+
+    try:
+        if workers > 1:
+            with ThreadPoolExecutor(max_workers=workers) as ex:
+                return list(ex.map(item, items))
+        return [item(it) for it in items]
+    finally:
+        profiler_tls.release(state)
+        with _counts_lock:
+            pool_seconds["calls"] += 1
+            pool_seconds["items"] += len(times)
+            pool_seconds["wall"] += sum(w for w, _c in times) / 1e9
+            pool_seconds["cpu"] += sum(c for _w, c in times) / 1e9
 
 
 def _wire_ests(ch: np.ndarray, prep_byte, tlog_byte: int, pp, qp,
@@ -267,7 +304,7 @@ def _stage_wire_batch(wire: str, items, n_pad: int):
         pad[: len(syms)] = syms
         srcw[j] = pad.view("<u4").view(np.int32).reshape(rows, 128)
 
-    _map(stage, range(G))
+    _map(stage, range(G), "stage")
     return fc, mg, srcw
 
 
@@ -312,7 +349,7 @@ def plan_encode(data: bytes, group_size: int, table_log: int, pair: int = -1,
                               plan.byte_counts)
         return wire, {"byte": p, "pair": pp, "quad": qp}[wire]
 
-    preps = _map(full_prep, chunks)
+    preps = _map(full_prep, chunks, "prep")
     frames: dict[int, bytes] = {}
     batches: dict[tuple[str, int, int], list] = {}
     for gi, (ch, (wire, prep)) in enumerate(zip(chunks, preps)):
@@ -577,6 +614,10 @@ stage_counts = {"batches": 0, "groups": 0}
 # (rans_decode_w), "mesh" (_mesh_decode), summed
 decode_routes = {r: {"batches": 0, "groups": 0}
                  for r in ("flat", "v2", "w", "mesh")}
+# the items of the _map calls made under a profiler (_map_traced): calls,
+# items, and the items' wall and CPU seconds on the threads that ran them,
+# summed; the CPU share of the wall tells work from waits on the GIL
+pool_seconds = {"calls": 0, "items": 0, "wall": 0.0, "cpu": 0.0}
 _counts_lock = threading.Lock()
 
 
@@ -944,7 +985,7 @@ def plan_encode16(symbols: np.ndarray, group_syms: int, steptots: bool):
     1023, the wide tables)."""
     chunks = [symbols[i : i + group_syms]
               for i in range(0, max(len(symbols), 1), group_syms)]
-    preps = _map(_prep16_group, chunks)
+    preps = _map(_prep16_group, chunks, "prep16")
     frames: dict[int, bytes] = {}
     batches: dict[tuple[int, bool, int], list] = {}
     for gi, (chunk, prep) in enumerate(zip(chunks, preps)):

@@ -20,7 +20,8 @@ import torch
 from torch.profiler import record_function
 
 _OFF = nullcontext()
-_collecting = torch._C._autograd._profiler_enabled
+# whether a profiler collects on the calling thread
+collecting = torch._C._autograd._profiler_enabled
 
 
 def span(name: str):
@@ -31,7 +32,11 @@ def span(name: str):
     CUDA activity, the kernels and copies a span launched lie on the same
     microsecond axis.  Nesting on the calling thread is the parent link: an
     entry point's span (turbo.compress, resident.decompress, ...) holds all
-    the spans of that call.  Spans opened on pool threads (the workers of
-    turbo/api.py's _map) are not recorded; only work on the calling thread
-    is named."""
-    return record_function(name) if _collecting() else _OFF
+    the spans of that call.  A span opened on another thread is recorded
+    only if that thread carries the profiler's thread-local state: the
+    workers of turbo/api.py's _map enter the caller's state for each item
+    (utils/profiler_tls.py), so their spans lie on the workers' own tids
+    inside the caller's stage span.  Where that library cannot be built or
+    loaded, and on any thread of the program's own that enters no state,
+    only the calling thread's work is named."""
+    return record_function(name) if collecting() else _OFF

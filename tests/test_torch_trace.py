@@ -25,7 +25,8 @@ GROUP = 1 << 15
 HOST_SPANS = {"turbo.compress": {"turbo.c_prep", "turbo.c_stage", "turbo.c_h2d",
                                  "turbo.c_kernel", "turbo.c_d2h", "turbo.c_frames",
                                  "turbo.prep.byte", "turbo.prep.pair",
-                                 "turbo.prep.quad", "turbo.prep.pick"},
+                                 "turbo.prep.quad", "turbo.prep.pick",
+                                 "turbo.pool.prep", "turbo.pool.stage"},
               "turbo.decompress": {"turbo.d_parse", "turbo.d_stage", "turbo.d_h2d",
                                    "turbo.d_batch", "turbo.d_kernel", "turbo.d_d2h",
                                    "turbo.d_copy", "turbo.d_join"}}
@@ -49,7 +50,8 @@ SPAN_METRICS = ("resident.host_ms_per_mib", "resident.decompress_host_ms_per_mib
                 "api.prep_wires_ms_per_mib", "compat.compress_checksum_ms_per_mib",
                 "compat.compress_host_ms_per_mib", "compat.decompress_checksum_ms_per_mib",
                 "compat.decompress_host_ms_per_mib", "kernels.decode_batch_ms_per_mib",
-                "kernels.decode_batch_roofline_pct")
+                "kernels.decode_batch_roofline_pct", "api.pool_ms_per_mib",
+                "api.pool_parallelism")
 
 
 def _data() -> bytes:
